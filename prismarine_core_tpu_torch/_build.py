@@ -1,0 +1,134 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+At the first CUDA launch, ``library()`` compiles every ``csrc/*.cu`` with
+nvcc into one shared library with a plain C interface, under
+``build/torch_kernels/`` beside the package (a directory git ignores), and
+loads it with ``ctypes``.  The library's file name carries a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing here runs at import.
+
+Every C entry point takes device pointers and the CUDA stream as
+``void*`` and returns ``cudaGetLastError()`` after its launch; ``check``
+turns a nonzero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signature of every entry point: (argtypes), all return int
+_SIGNATURES = {
+    # rays, box_rows, n_live, out, n_tiles, nb_pad, stream
+    "block_cull_launch": (_P, _P, _P, _P, _I, _I, _P),
+    # pair_tile, pair_sb, n_real, rays, sb_boxes, out, n_pairs, stream
+    "pair_cull_launch": (_P, _P, _P, _P, _P, _P, _I, _P),
+    # tile_start, pair_sb, pair_mask, n_real, rays, planes, prior_t,
+    # prior_slot, out_t, out_slot, n_tiles, stream
+    "sb_intersect_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _P),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libprismarine_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless a library for these exact sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_out = Path(tmp) / out.name
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+               "-o", str(tmp_out), *map(str, cu)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(proc.stderr)
+        os.replace(tmp_out, out)          # atomic: no half-written library
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_tensor(t, dtype, shape, name, device=None, numel=None):
+    """Validate a kernel argument before its pointer is passed: a CUDA
+    tensor (on ``device`` when given) of ``dtype``, ``shape`` (or
+    ``numel`` elements), contiguous."""
+    import torch
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name} must hold {numel} element(s)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,305 @@
+"""Packet (ray tile x triangle superblock) query on the hand-written kernels.
+
+The counterpart of the ``cull_impl="pallas2"`` path of
+``prismarine_core_tpu.accel.packet`` (``intersector="pallas"``):
+
+1. rays sort by a coherence key (dead lanes last) and form tiles of 128;
+   the kernel ray matrix is built unsorted and permuted with one row
+   gather, then padded with dead rays and one all-zero sentinel tile;
+2. the BVH's Morton-sorted triangle slots form blocks of 128 and
+   superblocks of 8 blocks, with AABBs and SoA planes (``PacketSet``);
+3. ``block_cull`` gives every (tile, superblock) entry distance;
+4. candidate pairs compact tile-major (``compact_pairs``), ``pair_cull``
+   refines each to an 8-bit block mask, and ``sb_intersect`` runs the
+   Moller-Trumbore of every live sub-block, keeping per-ray closest hits;
+5. "two_round" (closest-hit): each tile's K nearest superblocks first,
+   then one re-cull of the rest under the tightened per-ray caps;
+   "single": every candidate pair at once.
+
+The JAX path pads pair lists to static lengths, aligns them to the TPU
+kernel's pairs-per-step and runs them in while-loop windows; here lists
+have their exact length (``nonzero``, one host sync per compaction, counted
+in ``compact_pairs.host_syncs``) and each runs in one launch per kernel.
+No gradient flows through the query: ``_reeval_hit`` re-evaluates the
+winning triangle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from prismarine_core_tpu_torch.accel.lbvh import EMPTY_BOX
+from prismarine_core_tpu_torch.ops.cull import (
+    block_cull, box_rows_from_blocks, pair_cull, sb_box_table)
+from prismarine_core_tpu_torch.ops.intersect import Hit, moller_trumbore
+from prismarine_core_tpu_torch.ops.morton import morton30
+from prismarine_core_tpu_torch.ops.sb_intersect import (
+    BLOCK, RAY_COLS, RC_TCAP, SB, TILE, sb_intersect)
+from prismarine_core_tpu_torch.utils.config import INF_DIST, check_query_knobs
+from prismarine_core_tpu_torch.utils.math import safe_rcp
+
+#: default round-1 budget of "two_round": each tile's K nearest
+#: superblocks
+K_FIRST = 8
+
+
+@dataclasses.dataclass
+class PacketSet:
+    """Block/superblock view over the BVH's Morton-sorted slots."""
+
+    block_lo: torch.Tensor  # f32[B,3]
+    block_hi: torch.Tensor  # f32[B,3]
+    sb_lo: torch.Tensor     # f32[B/SB,3]
+    sb_hi: torch.Tensor     # f32[B/SB,3]
+    #: f32[B/SB + 1, 16, SB*BLOCK] rows v0xyz, e1xyz, e2xyz, valid, 0...;
+    #: sub-block k on lanes [128k, 128k+128); the trailing superblock is
+    #: all zero (valid = 0)
+    planes: torch.Tensor
+    slot_orig: torch.Tensor  # i32[B*BLOCK] slot -> original triangle id
+
+    @property
+    def n_blocks(self) -> int:
+        return self.block_lo.shape[0]
+
+    @property
+    def n_superblocks(self) -> int:
+        return self.sb_lo.shape[0]
+
+
+def build_packet_set(bvh) -> PacketSet:
+    """Block/superblock AABBs + SoA triangle planes."""
+    s = bvh.tv0.shape[0]
+    if s % BLOCK:
+        raise ValueError("slot count must be a multiple of BLOCK")
+    nb = -(-(s // BLOCK) // SB) * SB
+    nsb = nb // SB
+    pad = nb * BLOCK - s
+    big = EMPTY_BOX
+
+    def padded(a, fill=0.0):
+        if not pad:
+            return a
+        tail = torch.full((pad,) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                          device=a.device)
+        return torch.cat([a, tail])
+
+    tv0, tv1, tv2 = (padded(v) for v in (bvh.tv0, bvh.tv1, bvh.tv2))
+    orig = padded(bvh.orig, -1)
+    valid = (orig >= 0)[:, None]
+    slo = torch.where(valid, torch.minimum(torch.minimum(tv0, tv1), tv2), big)
+    shi = torch.where(valid, torch.maximum(torch.maximum(tv0, tv1), tv2),
+                      -big)
+    block_lo = slo.reshape(nb, BLOCK, 3).amin(dim=1)
+    block_hi = shi.reshape(nb, BLOCK, 3).amax(dim=1)
+    empty = (block_lo > block_hi).any(dim=-1, keepdim=True)
+    block_lo = torch.where(empty, big, block_lo)
+    block_hi = torch.where(empty, big, block_hi)
+    sb_lo = block_lo.reshape(nsb, SB, 3).amin(dim=1)
+    sb_hi = block_hi.reshape(nsb, SB, 3).amax(dim=1)
+
+    e1 = tv1 - tv0
+    e2 = tv2 - tv0
+    rows = [tv0[:, 0], tv0[:, 1], tv0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
+            e2[:, 0], e2[:, 1], e2[:, 2], (orig >= 0).to(torch.float32)]
+    rows += [torch.zeros_like(rows[0])] * (16 - len(rows))
+    planes = torch.stack([x.reshape(nb, BLOCK) for x in rows], dim=1)
+    planes = planes.reshape(nsb, SB, 16, BLOCK).transpose(1, 2)
+    planes = planes.reshape(nsb, 16, SB * BLOCK)
+    planes = torch.cat([planes, torch.zeros((1, 16, SB * BLOCK),
+                                            dtype=torch.float32,
+                                            device=planes.device)])
+    return PacketSet(block_lo=block_lo, block_hi=block_hi, sb_lo=sb_lo,
+                     sb_hi=sb_hi, planes=planes.contiguous(),
+                     slot_orig=orig)
+
+
+#: safe_rcp(0.0) in float32
+_INV_EPS = float(np.float32(1.0) / np.float32(1e-12))
+
+
+def _live_tile_bound(tct):
+    """i32 scalar: 1 + index of the last tile holding a live lane (dead
+    lanes sort last, so this is the live-tile prefix)."""
+    live_t = (tct > 0.0).any(dim=1)
+    idx = torch.arange(1, live_t.shape[0] + 1, device=tct.device)
+    return torch.where(live_t, idx, 0).amax().to(torch.int32)
+
+
+def _ray_sort_keys(root_lo, root_hi, o, d, t_cap=None):
+    """Coherence key (int64 holding a u32): dead(1b) ++ octant(3b) ++
+    origin Morton(15b) ++ direction Morton(12b); dead lanes (t_cap == 0)
+    sort last."""
+    unit = torch.clamp((o - root_lo) / torch.clamp(root_hi - root_lo,
+                                                   min=1e-6), 0.0, 1.0)
+    om = morton30((unit * 31.0).to(torch.int64))
+    dm = morton30((torch.abs(d) * 15.0).to(torch.int64))
+    octant = ((d[:, 0] >= 0).long() | ((d[:, 1] >= 0).long() << 1)
+              | ((d[:, 2] >= 0).long() << 2))
+    keys = (octant << 27) | (om << 12) | (dm & 0xFFF)
+    if t_cap is not None:
+        keys = keys | ((t_cap <= 0.0).long() << 31)
+    return keys
+
+
+def _coherence_perm(root_lo, root_hi, o, d, t_cap):
+    """(perm, inv_perm) of the coherence sort (one stable key sort)."""
+    keys = _ray_sort_keys(root_lo, root_hi, o, d, t_cap)
+    perm = torch.sort(keys, stable=True)[1]
+    inv_perm = torch.empty_like(perm)
+    inv_perm[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return perm, inv_perm
+
+
+def _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap, order=None):
+    """Kernel ray matrix f32[(nt+1)*TILE, 16] in coherence order (columns
+    o, d, t_cap, ., inv d; the JAX package's extra columns for its matmul
+    kernel form stay zero), padded with dead rays (o = (0, 0, 1e8),
+    d = (1, 0, 0), t_cap = 0) to a tile multiple plus one all-zero
+    sentinel tile.  Returns (rays, (perm, inv_perm), n_rays)."""
+    r = o.shape[0]
+    dev = o.device
+    if order is None:
+        order = _coherence_perm(root_lo, root_hi, o, d, t_cap)
+    nt = -(-r // TILE)
+    rays = torch.zeros(((nt + 1) * TILE, RAY_COLS), dtype=torch.float32,
+                       device=dev)
+    cols = torch.zeros((r, RAY_COLS), dtype=torch.float32, device=dev)
+    cols[:, 0:3] = o
+    cols[:, 3:6] = d
+    cols[:, RC_TCAP] = t_cap
+    cols[:, 8:11] = safe_rcp(d)
+    rays[:r] = cols[order[0]]                   # the one row gather
+    dead = rays[r:nt * TILE]
+    dead[:, 2] = 1e8
+    dead[:, 3] = 1.0
+    dead[:, 8] = 1.0                            # safe_rcp((1, 0, 0)),
+    dead[:, 9:11] = _INV_EPS                    # without a host copy
+    return rays, order, r
+
+
+def compact_pairs(mask, cols=None):
+    """Tile-major pair list of a [nt, n] candidate mask: (pair_tile,
+    pair_sb, n_real) as i32 tensors, in row-major order of the mask.  The
+    superblock of entry (t, c) is ``c``, or ``cols[t, c]`` when given
+    (the round-1 top-K table).  ``torch.nonzero`` sizes the list: one
+    host sync, counted in ``compact_pairs.host_syncs``."""
+    n_real = mask.sum().to(torch.int32)
+    idx = torch.nonzero(mask.reshape(-1))[:, 0]
+    compact_pairs.host_syncs += 1
+    width = mask.shape[1]
+    pair_tile = (idx // width).to(torch.int32)
+    if cols is None:
+        pair_sb = (idx % width).to(torch.int32)
+    else:
+        pair_sb = cols.reshape(-1)[idx].to(torch.int32)
+    return pair_tile, pair_sb, n_real
+
+
+compact_pairs.host_syncs = 0
+
+
+def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
+                       any_hit: bool = False, order=None,
+                       k_round: int | None = None,
+                       strategy: str | None = None,
+                       cull_impl: str = "pallas2", sort_mode: str = "full",
+                       kernel_form: str = "mt", near_frac: float = 0.0):
+    """Sort + tile rays, cull, run the pairs, unsort.  Returns
+    (slot, order): per-ray closest-hit slot (-1 = none) in the caller's
+    ray order, and the coherence sort.
+
+    ``strategy``: "two_round" (default for closest-hit) or "single"; the
+    JAX default for any-hit, "rounds", is not ported.  ``order`` reuses a
+    closest query's (perm, inv_perm) for its shadow query."""
+    if strategy is None:
+        strategy = "rounds" if any_hit else "two_round"
+    check_query_knobs(cull_impl=cull_impl, sort_mode=sort_mode,
+                      kernel_form=kernel_form, near_frac=near_frac,
+                      strategies=(strategy,))
+
+    rays, order, r = _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap,
+                                         order)
+    nt = rays.shape[0] // TILE - 1
+    nsb = ps.n_superblocks
+    dev = rays.device
+    tct = rays[:nt * TILE, RC_TCAP].reshape(nt, TILE)
+    k_first = K_FIRST if k_round is None else k_round
+    if nsb <= k_first:
+        strategy = "single"
+
+    sb_rows = box_rows_from_blocks(ps.sb_lo, ps.sb_hi)
+    sbbox = sb_box_table(ps.block_lo, ps.block_hi)
+    tn_sb = block_cull(rays, sb_rows, _live_tile_bound(tct))[:, :nsb]
+    sb_mask = tn_sb < INF_DIST
+
+    def run(mask, cull_rays, prior=None, cols=None):
+        pt, psb, n_real = compact_pairs(mask, cols)
+        pm = pair_cull(pt, psb, n_real, cull_rays, sbbox)
+        return sb_intersect(pt, psb, pm, n_real, rays, ps.planes, prior)
+
+    if strategy == "single":
+        out = run(sb_mask, rays)
+    else:
+        # round 1: the K nearest candidate superblocks of every tile
+        # (stable sort: equal distances keep superblock order)
+        tn_cand = torch.where(sb_mask, tn_sb, INF_DIST)
+        tn_sorted, sb_sorted = torch.sort(tn_cand, dim=1, stable=True)
+        cand = sb_sorted[:, :k_first]
+        cand_ok = tn_sorted[:, :k_first] < INF_DIST
+        out = run(cand_ok, rays, cols=cand)
+        executed = torch.zeros((nt, nsb + 1), dtype=torch.bool, device=dev)
+        executed.scatter_(1, torch.where(cand_ok, cand, nsb), True)
+        executed = executed[:, :nsb]
+
+        # round 2: re-cull the rest under the tightened per-ray caps
+        best1 = out[0][:nt * TILE].reshape(nt, TILE)
+        if any_hit:
+            slot1 = out[1][:nt * TILE].reshape(nt, TILE)
+            tct2 = torch.where(slot1 >= 0, 0.0, tct)
+        else:
+            tct2 = torch.minimum(tct, best1)
+        rays2 = rays.clone()
+        rays2[:nt * TILE, RC_TCAP] = tct2.reshape(-1)
+        tn2 = block_cull(rays2, sb_rows, _live_tile_bound(tct2))[:, :nsb]
+        sb_mask2 = (tn2 < INF_DIST) & sb_mask & ~executed
+        out = run(sb_mask2, rays2, prior=out)
+
+    return out[1][:r][order[1]], order
+
+
+def _reeval_hit(bvh, soup, o, d, slot) -> Hit:
+    """Re-evaluate the winning triangle of each ray (barycentrics, t)."""
+    tri = torch.where(slot >= 0, bvh.orig[torch.clamp(slot, min=0).long()],
+                      -1)
+    trix = torch.clamp(tri, min=0).long()
+    t, u, v, _ = moller_trumbore(o, d, soup.v0[trix], soup.v1[trix],
+                                 soup.v2[trix])
+    hitm = tri >= 0
+    return Hit(t=torch.where(hitm, t, INF_DIST), tri=tri,
+               u=torch.where(hitm, u, 0.0), v=torch.where(hitm, v, 0.0))
+
+
+def intersect_closest_pallas(bvh, ps: PacketSet, soup, o, d, t_cap=None,
+                             return_order=False, order=None, **kw):
+    """Closest hit through the packet query.  ``t_cap`` f32[R] (optional)
+    is a per-lane far limit; 0 removes a lane from every pair list.
+    ``return_order`` also returns the coherence sort for reuse by the
+    same bounce's shadow query.  ``**kw``: strategy knobs of
+    ``_run_packet_pallas``."""
+    if t_cap is None:
+        t_cap = torch.full((o.shape[0],), INF_DIST, device=o.device)
+    slot, order = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
+                                     t_cap, order=order, **kw)
+    hit = _reeval_hit(bvh, soup, o, d, slot)
+    return (hit, order) if return_order else hit
+
+
+def occluded_pallas(bvh, ps: PacketSet, soup, o, d, t_max, order=None,
+                    **kw):
+    """Any-hit query: True where some triangle lies in (PZERO, t_max)."""
+    slot, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d, t_max,
+                                 any_hit=True, order=order, **kw)
+    return slot >= 0

@@ -1,0 +1,101 @@
+"""Scene state to and from plain numpy arrays.
+
+This renderer has no weights: its state is the scene (triangles,
+materials, lights, environment, textures) and the acceleration structures
+built from it (``bvh``, ``packets``).  ``scene_from_numpy`` takes that
+state as a dict of numpy arrays keyed by dotted field path — for example
+``"triangles.v0"``, ``"bvh.orig"``, ``"packets.planes"``,
+``"lights.center"`` — and returns the port's ``Scene`` with exactly that
+BVH and packet set.  A JAX scene flattened to such a dict (on the JAX
+side) thus crosses over without this package importing jax, and the
+port's query can be held against the JAX query on an identical
+acceleration structure.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from prismarine_core_tpu_torch.accel.lbvh import BVH
+from prismarine_core_tpu_torch.accel.packet import PacketSet
+from prismarine_core_tpu_torch.models.geometry import TriangleSoup
+from prismarine_core_tpu_torch.models.lights import SphereLights
+from prismarine_core_tpu_torch.models.materials import MaterialTable
+from prismarine_core_tpu_torch.models.scene import Scene
+from prismarine_core_tpu_torch.models.textures import (
+    Environment, TextureStack)
+
+_GROUPS = {
+    "triangles": TriangleSoup,
+    "materials": MaterialTable,
+    "lights": SphereLights,
+    "environment": Environment,
+    "bvh": BVH,
+    "packets": PacketSet,
+}
+
+
+def _tensor_fields(cls):
+    return [f.name for f in dataclasses.fields(cls)]
+
+
+def scene_from_numpy(arrays: dict, device="cpu") -> Scene:
+    """Build the port's Scene from ``{"group.field": ndarray}``.
+
+    Groups ``triangles``, ``materials``, ``lights`` and ``environment``
+    are required; ``bvh`` and ``packets`` are taken when present (both or
+    neither).  ``textures.data`` must be the texture-less stub stack (a
+    single all-white texture) if given at all."""
+    def group(name):
+        cls = _GROUPS[name]
+        kw = {}
+        for f in _tensor_fields(cls):
+            key = f"{name}.{f}"
+            if key not in arrays:
+                raise KeyError(f"missing array {key!r}")
+            kw[f] = torch.tensor(np.asarray(arrays[key]), device=device)
+        return cls(**kw)
+
+    known = {f"{g}.{f}" for g, c in _GROUPS.items()
+             for f in _tensor_fields(c)} | {"textures.data"}
+    extra = sorted(set(arrays) - known)
+    if extra:
+        raise NotImplementedError(
+            f"arrays {extra} are outside the ported scene state (textures "
+            "beyond the stub stack: ROADMAP queue 1, 'Textures and env "
+            "NEE')")
+    textures = TextureStack.empty(device=device)
+    if "textures.data" in arrays:
+        data = np.asarray(arrays["textures.data"])
+        if data.shape[0] != 1 or not (data == 1.0).all():
+            raise NotImplementedError(
+                "only the texture-less stub stack is ported (ROADMAP "
+                "queue 1, 'Textures and env NEE')")
+        textures = TextureStack(
+            data=torch.tensor(data, dtype=torch.float32, device=device),
+            stub=True)
+    has_accel = ["bvh.lo" in arrays, "packets.planes" in arrays]
+    if any(has_accel) and not all(has_accel):
+        raise ValueError("bvh and packets come together")
+    return Scene(
+        triangles=group("triangles"), materials=group("materials"),
+        lights=group("lights"), environment=group("environment"),
+        textures=textures,
+        bvh=group("bvh") if all(has_accel) else None,
+        packets=group("packets") if all(has_accel) else None)
+
+
+def scene_to_numpy(scene: Scene) -> dict:
+    """The inverse of ``scene_from_numpy``."""
+    out = {}
+    for name in _GROUPS:
+        obj = getattr(scene, name)
+        if obj is None:
+            continue
+        for f in _tensor_fields(type(obj)):
+            out[f"{name}.{f}"] = getattr(obj, f).detach().cpu().numpy()
+    out["textures.data"] = scene.textures.data.detach().cpu().numpy()
+    return out

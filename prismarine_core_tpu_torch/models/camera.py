@@ -1,0 +1,70 @@
+"""Pinhole camera + primary ray generation.
+
+The counterpart of ``prismarine_core_tpu.models.camera``: rays come from a
+look-at frame in closed form, one per (spp, row, column) in scanline
+order, with per-ray jitter inside the pixel.  The 360 and thin-lens modes
+and the 16x8 tile lane order are ROADMAP queue 1 items
+(``RenderConfig`` checks raise for them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from prismarine_core_tpu_torch.utils import math as pm
+from prismarine_core_tpu_torch.utils.config import RenderConfig
+
+
+@dataclasses.dataclass
+class Camera:
+    eye: torch.Tensor     # f32[3]
+    target: torch.Tensor  # f32[3]
+    up: torch.Tensor      # f32[3]
+    fov_y: torch.Tensor   # f32[] vertical field of view, radians
+
+    @staticmethod
+    def look_at(eye, target, up=(0.0, 1.0, 0.0), fov_y_deg: float = 60.0,
+                device="cpu") -> "Camera":
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return Camera(eye=t(eye), target=t(target), up=t(up),
+                      fov_y=t(fov_y_deg * math.pi / 180.0))
+
+    def basis(self):
+        """Right-handed camera frame: forward, right, up."""
+        fwd = pm.normalize(self.target - self.eye)
+        right = pm.normalize(pm.cross(fwd, pm.normalize(self.up)))
+        cup = pm.cross(right, fwd)
+        return fwd, right, cup
+
+
+def generate_rays(camera: Camera, cfg: RenderConfig,
+                  cam_samples: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primary rays (origins, dirs) f32[R,3], R = spp*H*W laid out as
+    [spp, H, W] row-major; cam_samples f32[R,4] (jitter xy in 0:2)."""
+    w, h, spp = cfg.width, cfg.height, cfg.spp
+    n = spp * h * w
+    if cam_samples.shape[0] != n:
+        raise ValueError(f"cam_samples has {cam_samples.shape[0]} rows, "
+                         f"expected {n}")
+    dev = cam_samples.device
+    pix = torch.arange(n, dtype=torch.int32, device=dev) % (h * w)
+    px = (pix % w).to(torch.float32)
+    py = (pix // w).to(torch.float32)
+    jitter = torch.clamp(cam_samples[:, 0:2], 1e-5, 1.0 - 1e-5)
+    u = (px + jitter[:, 0]) / w
+    v = (py + jitter[:, 1]) / h
+    fwd, right, cup = camera.basis()
+    tan_half = torch.tan(camera.fov_y * 0.5)
+    aspect = w / h
+    sx = (u * 2.0 - 1.0) * tan_half * aspect
+    sy = (1.0 - v * 2.0) * tan_half
+    d = pm.normalize(fwd + sx[:, None] * right + sy[:, None] * cup)
+    o = camera.eye.expand(d.shape)
+    return o, d

@@ -1,0 +1,152 @@
+"""Render configuration — the port's copy of ``prismarine_core_tpu.utils.config``.
+
+Every field of ``RenderConfig`` keeps its name and default, so one set of
+values drives both packages in the parity tests.  The port implements the
+slice of these knobs that the bench frame runs; ``check_supported`` raises
+``NotImplementedError`` for the rest, naming the ROADMAP item that ports
+them, rather than silently computing something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+PZERO = 0.0005          # ray-offset epsilon
+GAP = 2.0 * PZERO       # surface spawn offset
+INF_DIST = 10000.0      # "infinity" hit distance
+
+#: uniforms consumed per bounce / per camera ray (slot layout:
+#: ops/sampling.py)
+SAMPLES_PER_BOUNCE = 11
+SAMPLES_PER_CAMERA_RAY = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Render settings; field meanings as in the JAX package."""
+
+    width: int = 256
+    height: int = 256
+    max_bounces: int = 4
+    spp: int = 1
+    #: next-event estimation toward the sphere lights
+    direct_light: bool = True
+    #: environment importance sampling (not ported yet)
+    env_nee: bool = False
+    camera_360: bool = False
+    interlace: bool = False
+    dof: bool = False
+    dof_focus_radius: float = 10.0
+    dof_focal_radius: float = 1.0 / 16.0
+    #: kill rays whose throughput falls below this
+    min_throughput: float = 1e-4
+    rr_start_bounce: int = 0
+    rr_min_q: float = 0.05
+    ior: float = 1.4
+    #: triangle-block size of the brute-force intersector
+    tri_block: int = 512
+    bvh_leaf_size: int = 4
+    #: "brute" | "bvh" | "packet" | "pallas" | "pallas_sharded"; the port
+    #: runs "brute" and "pallas" ("pallas" = the packet query on the
+    #: hand-written kernels, accel/packet.py)
+    intersector: str = "bvh"
+    mesh: object = None
+    traverse_chunk: int = 0
+    texture_filter: str = "bilinear"
+    samples_lock: int = 0
+    coherent_bounce_sampling: bool = False
+    reuse_bounce_order: bool = False
+    sort_rays: bool = False
+    cull_impl: str = "pallas"
+    #: pair window of the JAX refine kernel; the port runs each pair list
+    #: in one launch, so this only exists for config parity
+    cull_window: int = 4096
+    #: pair-list alignment of the JAX two-level cull; the port's kernels
+    #: take unaligned lists, so this only exists for config parity
+    cull_pps: int = 0
+    kernel_form: str = "mt"
+    anyhit_cull_impl: str = ""
+    primary_identity: bool = False
+    primary_tile_order: bool = False
+    sort_mode: str = "full"
+    recull: str = "sb"
+    stale_round_masks: bool = False
+    near_frac: float = 0.0
+    #: pair window of the JAX intersect kernel (config parity only)
+    kernel_window: int = 1024
+    #: same-tile pairs per JAX grid step (config parity only: the port's
+    #: intersect kernel walks a tile's whole pair run in one block)
+    pairs_per_step: int = 1
+    closest_strategy: str = ""
+    closest_k: int = 0
+    anyhit_strategy: str = ""
+    anyhit_k: int = 0
+
+    @property
+    def n_pixels(self) -> int:
+        return self.width * self.height
+
+    @property
+    def n_rays(self) -> int:
+        return self.width * self.height * self.spp
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_TEXTURES = "ROADMAP queue 1, 'Textures and env NEE'"
+_FEATURES = "ROADMAP queue 1, 'Remaining integrator and camera features'"
+_KNOBS = "ROADMAP queue 1, 'Packet-path knobs off the main path'"
+_INTERSECTORS = "ROADMAP queue 1, 'Other intersectors'"
+_MULTI = "ROADMAP queue 1, 'Multi-GPU'"
+
+
+def _unsupported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def check_supported(cfg: RenderConfig) -> None:
+    """Raise NotImplementedError for any knob outside the ported slice."""
+    if cfg.texture_filter != "bilinear":
+        _unsupported(f"texture_filter={cfg.texture_filter!r}", _TEXTURES)
+    if cfg.env_nee:
+        _unsupported("env_nee", _TEXTURES)
+    if cfg.rr_start_bounce > 0:
+        _unsupported("rr_start_bounce > 0 (Russian roulette)", _FEATURES)
+    for flag in ("interlace", "dof", "camera_360"):
+        if getattr(cfg, flag):
+            _unsupported(flag, _FEATURES)
+    if cfg.mesh is not None:
+        _unsupported("mesh", _MULTI)
+    if cfg.intersector not in ("brute", "pallas"):
+        _unsupported(f"intersector={cfg.intersector!r}", _INTERSECTORS)
+    if cfg.intersector == "pallas":
+        check_query_knobs(
+            cull_impl=cfg.cull_impl, sort_mode=cfg.sort_mode,
+            kernel_form=cfg.kernel_form, near_frac=cfg.near_frac,
+            anyhit_cull_impl=cfg.anyhit_cull_impl,
+            strategies=(cfg.closest_strategy, cfg.anyhit_strategy or
+                        "rounds"))
+        for flag in ("primary_tile_order", "primary_identity",
+                     "reuse_bounce_order"):
+            if getattr(cfg, flag):
+                _unsupported(flag, _KNOBS)
+
+
+def check_query_knobs(cull_impl="pallas2", sort_mode="full",
+                      kernel_form="mt", near_frac=0.0,
+                      anyhit_cull_impl="", strategies=()) -> None:
+    """The packet-query subset of ``check_supported``."""
+    if cull_impl != "pallas2" or anyhit_cull_impl not in ("", "pallas2"):
+        _unsupported(f"cull_impl={cull_impl!r}/anyhit_cull_impl="
+                     f"{anyhit_cull_impl!r} (only 'pallas2')", _KNOBS)
+    if sort_mode != "full":
+        _unsupported(f"sort_mode={sort_mode!r}", _KNOBS)
+    if kernel_form != "mt":
+        _unsupported(f"kernel_form={kernel_form!r}",
+                     "ROADMAP queue 2, '_sb_kernel_mt2' / '_sb_kernel_mxu'")
+    if near_frac != 0.0:
+        _unsupported("near_frac", _KNOBS)
+    for s in strategies:
+        if s not in ("", "single", "two_round"):
+            _unsupported(f"strategy={s!r}", _KNOBS)

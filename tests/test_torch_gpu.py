@@ -1,0 +1,150 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (and nvcc to build the kernels) and
+skips without one.  The module imports no jax, so it runs on a machine
+without the JAX package; skip the JAX test harness there:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+The kernels are built with -fmad=false and use their plain versions'
+operation order, so every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from prismarine_core_tpu_torch.accel import packet as pk  # noqa: E402
+from prismarine_core_tpu_torch.accel.lbvh import build_bvh  # noqa: E402
+from prismarine_core_tpu_torch.models.geometry import TriangleSoup  # noqa: E402
+from prismarine_core_tpu_torch.ops import cull  # noqa: E402
+from prismarine_core_tpu_torch.ops import sb_intersect as si  # noqa: E402
+from prismarine_core_tpu_torch.utils.config import INF_DIST  # noqa: E402
+
+TILE = 128
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA card; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _scene(n_tris, seed, dev):
+    """Random small triangles (as tests/test_bvh.py builds them), their
+    BVH and packet set on ``dev``."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-5, 5, (n_tris, 3)).astype(np.float32)
+    verts = np.concatenate([centers + rng.normal(0, 0.3, (n_tris, 3))
+                            for _ in range(3)]).astype(np.float32)
+    faces = np.stack([np.arange(n_tris) + k * n_tris for k in range(3)], 1)
+    soup = TriangleSoup.from_arrays(verts, faces, capacity=n_tris + 5,
+                                    device=dev)
+    bvh = build_bvh(soup, leaf_size=4)
+    return soup, bvh, pk.build_packet_set(bvh)
+
+
+def _rays(r, seed, dev, live_frac=1.0, t_far=INF_DIST):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-8, 8, (r, 3)).astype(np.float32)
+    d = rng.normal(size=(r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_cap = np.where(rng.random(r) < live_frac, t_far, 0.0)
+    return (torch.tensor(o, device=dev), torch.tensor(d, device=dev),
+            torch.tensor(t_cap.astype(np.float32), device=dev))
+
+
+CASES = [dict(n_tris=300, r=512, seed=11), dict(n_tris=3000, r=2048, seed=21),
+         dict(n_tris=500, r=1024, seed=31, live_frac=0.4),
+         dict(n_tris=900, r=1024, seed=41, t_far=25.0)]
+IDS = ["300x512", "3000x2048", "dead-lanes", "short-caps"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kernels_equal_plain(cuda_device, case):
+    """Each kernel equals its plain version exactly, on the inputs the
+    query gives it (round 1 and a prior-seeded second pass)."""
+    dev = cuda_device
+    _, bvh, ps = _scene(case["n_tris"], case["seed"], dev)
+    o, d, t_cap = _rays(case["r"], case["seed"] + 1, dev,
+                        case.get("live_frac", 1.0),
+                        case.get("t_far", INF_DIST))
+    rays, _, _ = pk._sorted_rays_matrix(bvh.lo[0], bvh.hi[0], o, d, t_cap)
+    nt = rays.shape[0] // TILE - 1
+    n_live = pk._live_tile_bound(rays[:nt * TILE, 6].reshape(nt, TILE))
+    sb_rows = cull.box_rows_from_blocks(ps.sb_lo, ps.sb_hi)
+    sbbox = cull.sb_box_table(ps.block_lo, ps.block_hi)
+
+    tn = cull.block_cull(rays, sb_rows, n_live)
+    assert torch.equal(tn, cull.block_cull_plain(rays, sb_rows, n_live))
+    pt, psb, n_real = pk.compact_pairs(tn[:, :ps.n_superblocks] < INF_DIST)
+    assert int(n_real) > 0
+    pm = cull.pair_cull(pt, psb, n_real, rays, sbbox)
+    assert torch.equal(pm, cull.pair_cull_plain(pt, psb, n_real, rays,
+                                                sbbox))
+    assert bool((pm != 0).any())
+
+    out = si.sb_intersect(pt, psb, pm, n_real, rays, ps.planes)
+    ref = si.sb_intersect_plain(pt, psb, pm, n_real, rays, ps.planes)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert bool((out[1] >= 0).any())
+    half = (n_real // 2).to(torch.int32)
+    out2 = si.sb_intersect(pt, psb, pm, half, rays, ps.planes, prior=out)
+    ref2 = si.sb_intersect_plain(pt, psb, pm, half, rays, ps.planes,
+                                 prior=out)
+    assert all(torch.equal(a, b) for a, b in zip(out2, ref2))
+
+
+@pytest.fixture
+def plain_versions(monkeypatch):
+    """Run the packet query on the kernels' plain versions."""
+    monkeypatch.setattr(pk, "block_cull", cull.block_cull_plain)
+    monkeypatch.setattr(pk, "pair_cull", cull.pair_cull_plain)
+    monkeypatch.setattr(pk, "sb_intersect", si.sb_intersect_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["two_round", "single"])
+def test_query_equal_plain(cuda_device, strategy, request):
+    """Both queries give the same hits on the kernels as on the plain
+    versions ("two_round" with K=2 so that round 2 runs)."""
+    dev = cuda_device
+    soup, bvh, ps = _scene(3000, 21, dev)
+    assert ps.n_superblocks > 2
+    o, d, t_cap = _rays(4096, 22, dev, live_frac=0.8)
+    kw = dict(strategy=strategy, k_round=2)
+
+    def run():
+        hit = pk.intersect_closest_pallas(bvh, ps, soup, o, d, t_cap=t_cap,
+                                          **kw)
+        occ = pk.occluded_pallas(bvh, ps, soup, o, d, 0.5 * t_cap, **kw)
+        return hit, occ
+
+    launches = si.sb_intersect.launches
+    hit, occ = run()
+    assert si.sb_intersect.launches > launches
+    request.getfixturevalue("plain_versions")
+    hit_p, occ_p = run()
+    assert torch.equal(hit.tri, hit_p.tri) and torch.equal(hit.t, hit_p.t)
+    assert torch.equal(occ, occ_p)
+    assert bool((hit.tri >= 0).any()) and bool(occ.any())
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_mixed_devices(cuda_device):
+    """A kernel wrapper raises on an argument that is not on the card
+    (no silent fallback to the plain version)."""
+    dev = cuda_device
+    _, bvh, ps = _scene(300, 11, dev)
+    o, d, t_cap = _rays(256, 12, dev)
+    rays, _, _ = pk._sorted_rays_matrix(bvh.lo[0], bvh.hi[0], o, d, t_cap)
+    sb_rows = cull.box_rows_from_blocks(ps.sb_lo, ps.sb_hi)
+    n_live = torch.tensor(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        cull.block_cull(rays, sb_rows.cpu(), n_live)
+    with pytest.raises(TypeError):
+        cull.block_cull(rays, sb_rows, n_live.long())

@@ -1,0 +1,159 @@
+"""Port primitives against the JAX package: Morton codes, sampling
+formulas, Moller-Trumbore, the sphere test and the brute intersectors.
+
+Integers must be equal.  Floats are held to 1 ulp at the scale of the
+computation: XLA on the CPU contracts a multiply followed by an add into
+one fused multiply-add where torch rounds the product first (checked
+below: the port's cross product equals numpy's unfused float32 formula
+bit for bit, JAX's does not).  Where an output cancels (a cross product
+near zero) its own ulp is meaningless, so the bound is 1 ulp of the
+operands' scale; Moller-Trumbore's t, u, v are numerators times 1/det, so
+their scale is the numerator's terms over |det|, and they chain two
+contractible stages (1 ulp each).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import tests.conftest  # noqa: E402,F401  (pins JAX to the CPU)
+import jax.numpy as jnp  # noqa: E402
+
+from prismarine_core_tpu.ops import intersect as ji  # noqa: E402
+from prismarine_core_tpu.ops import morton as jmo  # noqa: E402
+from prismarine_core_tpu.ops import sampling as js  # noqa: E402
+from prismarine_core_tpu.utils import math as jm  # noqa: E402
+from prismarine_core_tpu_torch.ops import intersect as ti  # noqa: E402
+from prismarine_core_tpu_torch.ops import morton as tmo  # noqa: E402
+from prismarine_core_tpu_torch.ops import sampling as ts  # noqa: E402
+from prismarine_core_tpu_torch.utils import math as tm  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def assert_ulp(port, ref, scale, n_ulp=1.0):
+    """|port - ref| <= n_ulp ulps of max(|ref|, scale) (float32)."""
+    port = np.asarray(port, np.float64)
+    ref = np.asarray(ref, np.float64)
+    mag = np.maximum(np.abs(ref), scale).astype(np.float32)
+    err = np.abs(port - ref) / np.spacing(mag).astype(np.float64)
+    assert err.max() <= n_ulp, f"max error {err.max():.2f} ulp"
+
+
+def T(*xs):
+    return [torch.as_tensor(x) for x in xs]
+
+
+def J(*xs):
+    return [jnp.asarray(x) for x in xs]
+
+
+def _unit(rng, n):
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def test_morton_codes_equal():
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 1024, (5000, 3))
+    got = tmo.morton30(torch.as_tensor(q)).numpy()
+    ref = np.asarray(jmo.morton30(jnp.asarray(q, jnp.uint32)))
+    np.testing.assert_array_equal(got, ref.astype(np.int64))
+    p = rng.uniform(-0.2, 1.2, (5000, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tmo.quantize_unit(torch.as_tensor(p)).numpy(),
+        np.asarray(jmo.quantize_unit(jnp.asarray(p))).astype(np.int64))
+
+
+def test_port_cross_is_unfused_float32():
+    """The port rounds every product (no FMA): it equals numpy's float32
+    evaluation of the formula exactly."""
+    rng = np.random.default_rng(1)
+    a, b = rng.normal(size=(2, 4000, 3)).astype(np.float32)
+    ref = np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                    a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                    a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], -1)
+    np.testing.assert_array_equal(tm.cross(*T(a, b)).numpy(), ref)
+    assert_ulp(tm.cross(*T(a, b)), jm.cross(*J(a, b)),
+               scale=(np.abs(a).max(1) * np.abs(b).max(1))[:, None])
+
+
+def test_sampling_formulas_match_jax():
+    rng = np.random.default_rng(2)
+    n = _unit(rng, 20000)
+    u1, u2 = rng.random((2, 20000)).astype(np.float32)
+    assert_ulp(ts.cosine_hemisphere(*T(n, u1, u2)),
+               js.cosine_hemisphere(*J(n, u1, u2)), scale=1.0)
+    assert_ulp(ts.uniform_sphere(*T(u1, u2)),
+               js.uniform_sphere(*J(u1, u2)), scale=1.0)
+    assert_ulp(tm.normalize(*T(3.0 * n)), jm.normalize(*J(3.0 * n)),
+               scale=1.0)
+    radius = rng.uniform(0.5, 2.0, 20000).astype(np.float32)
+    dist = rng.uniform(1.0, 100.0, 20000).astype(np.float32)
+    m = n[::-1].copy()
+    assert_ulp(ts.light_sampling_weight(*T(n, m, radius, dist)),
+               js.light_sampling_weight(*J(n, m, radius, dist)), scale=1.0)
+
+
+def test_moller_trumbore_and_sphere_match_jax():
+    rng = np.random.default_rng(3)
+    r = 20000
+    o = rng.uniform(-3, 3, (r, 3)).astype(np.float32)
+    d = _unit(rng, r)
+    v0, v1, v2 = rng.uniform(-2, 2, (3, r, 3)).astype(np.float32)
+    tj, uj, vj, okj = (np.asarray(x) for x in ji.moller_trumbore(
+        *J(o, d, v0, v1, v2)))
+    tt, ut, vt, okt = (x.numpy() for x in ti.moller_trumbore(
+        *T(o, d, v0, v1, v2)))
+    np.testing.assert_array_equal(okt, okj)
+    det = np.abs(np.einsum("ij,ij->i", v1 - v0,
+                           np.cross(d, v2 - v0))).astype(np.float64)
+    # numerator terms are products of coordinates of magnitude <= 5;
+    # each output chains two contractible stages (a cross product, then a
+    # dot product), so the bound is 1 ulp per stage
+    scale = 25.0 / np.maximum(det, 1e-6)
+    for p, j in ((tt, tj), (ut, uj), (vt, vj)):
+        assert_ulp(p[okt], j[okt], scale=scale[okt], n_ulp=2.0)
+
+    c = rng.uniform(-1, 1, (r, 3)).astype(np.float32)
+    rad = rng.uniform(0.5, 2.0, r).astype(np.float32)
+    assert_ulp(ti.intersect_sphere(*T(o, d, c, rad)),
+               ji.intersect_sphere(*J(o, d, c, rad)), scale=1.0)
+
+
+@pytest.mark.parametrize("n_tris,r,block", [(50, 64, 16), (300, 333, 64)])
+def test_brute_intersectors_match_jax(n_tris, r, block):
+    from prismarine_core_tpu.models.geometry import TriangleSoup as JSoup
+    from prismarine_core_tpu_torch.models.geometry import TriangleSoup
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(-5, 5, (n_tris, 3)).astype(np.float32)
+    verts = np.concatenate([centers + rng.normal(0, 0.3, (n_tris, 3))
+                            for _ in range(3)]).astype(np.float32)
+    faces = np.stack([np.arange(n_tris) + k * n_tris for k in range(3)], 1)
+    js_soup = JSoup.from_arrays(verts, faces, capacity=n_tris + 7)
+    ts_soup = TriangleSoup.from_arrays(verts, faces, capacity=n_tris + 7)
+    o = rng.uniform(-8, 8, (r, 3)).astype(np.float32)
+    aim = centers[rng.integers(0, n_tris, r)] + rng.normal(0, 0.2, (r, 3))
+    d = (aim - o) / np.linalg.norm(aim - o, axis=-1, keepdims=True)
+    d = d.astype(np.float32)
+    hj = ji.intersect_closest_brute(js_soup, *J(o, d), block=block)
+    ht = ti.intersect_closest_brute(ts_soup, *T(o, d), block=block)
+    tri_j, tri_t = np.asarray(hj.tri), ht.tri.numpy()
+    diff = int((tri_j != tri_t).sum())
+    print(f"brute closest: {diff} of {r} lanes pick another triangle")
+    assert diff <= max(1, r // 1000)
+    both = (tri_j == tri_t) & (tri_j >= 0)
+    assert both.sum() > r // 10
+    tri = tri_t[both]
+    v0 = verts[tri]
+    e1 = verts[tri + n_tris] - v0
+    e2 = verts[tri + 2 * n_tris] - v0
+    det = np.abs(np.einsum("ij,ij->i", e1, np.cross(d[both], e2)))
+    assert_ulp(ht.t.numpy()[both], np.asarray(hj.t)[both],
+               scale=256.0 / np.maximum(det, 1e-6), n_ulp=2.0)
+    t_max = rng.uniform(0.5, 20, r).astype(np.float32)
+    occ_j = np.asarray(ji.occluded_brute(js_soup, *J(o, d, t_max),
+                                         block=block))
+    occ_t = ti.occluded_brute(ts_soup, *T(o, d, t_max), block=block).numpy()
+    assert (occ_j != occ_t).sum() <= max(1, r // 1000)

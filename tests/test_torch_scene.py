@@ -1,0 +1,131 @@
+"""Port scene model and acceleration build against the JAX package.
+
+The procedural scenes are numpy on the same seeds, so every array must be
+equal; ``build_bvh`` and ``build_packet_set`` must give the same node
+arrays, slot order and packet planes bit for bit.  Also: the numpy
+interop round-trips, and importing the port leaves jax unloaded.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import tests.conftest  # noqa: E402,F401  (pins JAX to the CPU)
+import jax  # noqa: E402
+
+from prismarine_core_tpu.accel.lbvh import build_bvh as j_build_bvh  # noqa: E402
+from prismarine_core_tpu.accel.packet import (  # noqa: E402
+    build_packet_set as j_build_packet_set)
+from prismarine_core_tpu.models import procedural as jproc  # noqa: E402
+from prismarine_core_tpu_torch import interop  # noqa: E402
+from prismarine_core_tpu_torch.accel.lbvh import build_bvh  # noqa: E402
+from prismarine_core_tpu_torch.accel.packet import build_packet_set  # noqa: E402
+from prismarine_core_tpu_torch.models import procedural as tproc  # noqa: E402
+from prismarine_core_tpu_torch.models.geometry import TriangleSoup  # noqa: E402
+from tests.test_bvh import _random_soup  # noqa: E402
+
+torch.set_num_threads(1)
+
+GROUPS = ("triangles", "materials", "lights", "environment", "bvh",
+          "packets")
+
+
+def jax_scene_arrays(scene) -> dict:
+    """A JAX Scene's array leaves as numpy, keyed "group.field" (the
+    input format of ``interop.scene_from_numpy``)."""
+    out = {}
+    for g in GROUPS:
+        obj = getattr(scene, g)
+        if obj is None:
+            continue
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, jax.Array):
+                out[f"{g}.{f.name}"] = np.asarray(v)
+    out["textures.data"] = np.asarray(scene.textures.data)
+    return out
+
+
+def port_soup(jsoup) -> TriangleSoup:
+    """The port's soup holding a JAX soup's arrays."""
+    return TriangleSoup(**{f.name: torch.tensor(
+        np.asarray(getattr(jsoup, f.name)))
+        for f in dataclasses.fields(jsoup)})
+
+
+def assert_dataclass_equal(port_obj, jax_obj, name):
+    for f in dataclasses.fields(port_obj):
+        if f.name == "stub":
+            continue
+        got = getattr(port_obj, f.name).numpy()
+        ref = np.asarray(getattr(jax_obj, f.name))
+        assert got.shape == ref.shape, f"{name}.{f.name} shape"
+        np.testing.assert_array_equal(got, ref.astype(got.dtype),
+                                      err_msg=f"{name}.{f.name}")
+
+
+@pytest.fixture(scope="module")
+def halls():
+    return (jproc.make_hall_scene(target_tris=3000),
+            tproc.make_hall_scene(target_tris=3000))
+
+
+def test_hall_and_sky_arrays_equal(halls):
+    jh, th = halls
+    for g in ("triangles", "materials", "lights", "environment"):
+        assert_dataclass_equal(getattr(th, g), getattr(jh, g), g)
+    assert_dataclass_equal(tproc.make_sky_environment(resolution=32),
+                           jproc.make_sky_environment(resolution=32), "sky")
+
+
+def test_hall_bvh_and_packets_equal(halls):
+    jh, th = halls
+    assert_dataclass_equal(th.bvh, jh.bvh, "bvh")
+    assert_dataclass_equal(th.packets, jh.packets, "packets")
+
+
+@pytest.mark.parametrize("n_tris,capacity,seed", [
+    (100, 128, 0), (10, 64, 0), (300, 384, 3), (200, 256, 5),
+    (1000, 1005, 11)])
+def test_build_bvh_matches_jax(n_tris, capacity, seed):
+    jsoup = _random_soup(n_tris, capacity=capacity, seed=seed)
+    jb = j_build_bvh(jsoup, leaf_size=4)
+    tb = build_bvh(port_soup(jsoup), leaf_size=4)
+    assert_dataclass_equal(tb, jb, "bvh")
+    assert_dataclass_equal(build_packet_set(tb), j_build_packet_set(jb),
+                           "packets")
+
+
+def test_interop_round_trip(halls):
+    jh, _ = halls
+    arrays = jax_scene_arrays(jh)
+    scene = interop.scene_from_numpy(arrays)
+    back = interop.scene_to_numpy(scene)
+    assert set(back) == set(arrays)
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    assert scene.textures.stub
+    with pytest.raises(NotImplementedError):
+        interop.scene_from_numpy({**arrays, "textures.quad": arrays[
+            "textures.data"]})
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import prismarine_core_tpu_torch.render.integrator\n"
+            "import prismarine_core_tpu_torch.interop\n"
+            "import prismarine_core_tpu_torch.models.procedural\n"
+            "import prismarine_core_tpu_torch._build\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m.startswith('prismarine_core_tpu.')"
+            " or m == 'prismarine_core_tpu' or m == 'triton']\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
