@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: the bench frame on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: the bench frame and the
+inverse-rendering train step on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -9,23 +10,46 @@ PyTorch built for CUDA:
 Phases (any failure exits non-zero):
   1. device   — the card's name; nvidia-smi's name and power limit;
   2. build    — nvcc builds prismarine_core_tpu_torch/csrc/*.cu into
-                build/torch_kernels/ (timed);
+                build/torch_kernels/, one process per source (timed);
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 card, on the full hall with 1280x720 bounce-0 and bounce-1
-                rays at the main path's shapes: block cull, pair cull
-                masks and intersector (t, slot) must be equal exactly;
-                kernel and plain times by CUDA events after a warm-up;
+                rays at the main path's shapes (round 1 of the closest
+                query): block cull, pair cull masks and the three pair
+                intersector forms' (t, slot) must be equal exactly, "mt2"
+                must also equal "mt" exactly, and "mxu" must meet
+                mxu_bounds against "mt"; kernel and plain times by CUDA
+                events after a warm-up, and each kernel's bound (the
+                larger of its fp32 operations over 67 TFLOP/s and its
+                bytes over 3.35 TB/s);
   4. frame    — render_with_samples(..., with_stats=True) at bench.py's
                 main configuration, with every kernel's launch counter
                 set to 0 before and read after (each must be > 0 and at
                 most 12 = 2 per closest query + 1 per shadow query over
                 4 bounces); then 3 timed frames, one sync each: ms/frame,
                 live rays, Mrays/s, host syncs per frame, peak memory;
+                and one frame under torch.profiler (device time by group);
   5. parity   — the same frame with the plain versions in the kernels'
-                place: the image must meet the CPU image test's bound.
+                place: the image must meet the CPU image test's bound;
+  6. frame mt2 — the same frame under kernel_form="mt2": bit-identical to
+                the "mt" frame, sb_intersect_mt2 launched 1..12 times;
+                ms/frame;
+  7. train    — make_train_step at full width under kernel_form="mxu"
+                (target: the "mt" frame; start: init_params with the
+                diffuse RGB halved; TRAIN_KW: lr 0.02, normalized
+                gradients, the light and vertex rates of
+                tests/test_parallel.py:103-105 with the vertex rate scaled
+                to the hall): one step from the start under "mt" and
+                under "mxu" (losses within 0.5%, cosine of the two updates
+                printed; counters read around the "mxu" step); then timed
+                steps (finite losses, finite non-zero updates and
+                gradients, descent, sb_intersect_mxu launched within a
+                step), the forward / backward + update split, peak memory,
+                a profile of one step, and the losses under the cornell
+                box's own vertex rate (recorded, not required).
 
-The last lines are the kernel table as JSON, nvidia-smi's line, and
-``{"ok": true, "device": {...}}``.  Nothing falls back to the CPU.
+The last lines are the kernel table as JSON (all five kernels), nvidia-smi's
+line, and ``{"ok": true, "device": {...}}``.  Nothing falls back to the
+CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +59,7 @@ import contextlib
 import dataclasses
 import json
 import linecache
+import math
 import subprocess
 import sys
 import time
@@ -46,8 +71,29 @@ W, H, BOUNCES = 1280, 720, 4
 #: sanity band of the frame's mean radiance (the full frame's mean is
 #: 0.29-0.35 over sample seeds 0-3 on an H100)
 MEAN_BAND = (0.2, 0.4)
-KERNELS = ("block_cull", "pair_cull", "sb_intersect")
+KERNELS = ("block_cull", "pair_cull", "sb_intersect", "sb_intersect_mt2",
+           "sb_intersect_mxu")
 MAX_LAUNCHES = 2 * BOUNCES + BOUNCES     # per frame, each kernel
+#: the card's published peaks (H100 SXM at 700 W): fp32 outside the
+#: tensor cores, and HBM bandwidth
+FP32_PER_S, BYTES_PER_S = 67e12, 3.35e12
+#: fp32 operations per ray-box slab test (6 sub, 6 mul, 11 min/max) and
+#: per ray-triangle test of the elementwise and determinant forms
+#: (adds, subs, muls, the divide; compares and selects not counted)
+SLAB_OPS, MT_OPS, MXU_OPS = 23, 46, 39
+TRAIN_STEPS = 8
+#: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
+#: the 64-triangle cornell box
+CORNELL_KW = dict(lr=0.02, normalize_grads=True,
+                  lr_scale={"v0": 0.01, "v1": 0.01, "v2": 0.01,
+                            "light_color": 0.1})
+#: the same with the vertex rate scaled to the hall.  normalize_grads
+#: divides each gradient by its RMS over all entries; the vertex gradient
+#: is sparse, so its largest normalized entry grows about as the square
+#: root of the entry count: 0.01 * sqrt(192 / 411,000) ~ 2e-4 keeps the
+#: largest vertex move near the cornell box's
+TRAIN_KW = dict(CORNELL_KW, lr_scale={"v0": 1e-4, "v1": 1e-4, "v2": 1e-4,
+                                      "light_color": 0.1})
 
 
 def log(msg=""):
@@ -82,6 +128,73 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of ops at the fp32 peak and bytes at the memory rate."""
+    t_ops, t_bytes = ops / FP32_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes"))
+
+
+def mxu_bounds(scene, rays, tn, tx, sm, sx):
+    """The "mxu" form against "mt" on live lanes (``rays`` their kernel
+    ray rows): hit parity > 99.5% and slot parity > 99% where both hit,
+    as tests/test_packet.py:398-411; and t within rtol 1e-3 / atol 1e-4
+    for the same winner, rtol 1e-2 / atol 1e-3 for another winner, which
+    that test holds on 2,048 random rays and which here must hold for
+    all but 1e-4 of the joint hits.  The lanes off the t bound are
+    classed by their two winners: within 1e-3 of an edge of either in
+    barycentrics (the reordered sums move the edge, so the ray sees
+    through a crack or clips a neighbour) or grazing (|cos(d, n)| <
+    1e-2, t = t_num / det ill-conditioned)."""
+    import torch
+    from prismarine_core_tpu_torch.ops.intersect import moller_trumbore
+    from prismarine_core_tpu_torch.utils import math as pm
+    agree_hit = (sm >= 0) == (sx >= 0)
+    both = (sm >= 0) & (sx >= 0)
+    same = sm[both] == sx[both]
+    hit_parity = float(agree_hit.float().mean())
+    slot_parity = float(same.float().mean())
+    a, b = tx[both], tn[both]
+    tol = torch.where(same, 1e-4 + 1e-3 * b.abs(), 1e-3 + 1e-2 * b.abs())
+    off = (a - b).abs() > tol
+    n_edge = n_graze = 0
+    worst = 0.0
+    if off.any():
+        s = scene.triangles
+        r = rays[both][off]
+
+        def edge_cos(slot):
+            """Distance to the nearest edge in barycentrics, and
+            |cos(d, n)|, of each lane's winner."""
+            tri = scene.bvh.orig[slot.long()].long()
+            v0, v1, v2 = (pm.take_rows(x, tri) for x in (s.v0, s.v1, s.v2))
+            _, u, v, _ = moller_trumbore(r[:, 0:3], r[:, 3:6], v0, v1, v2)
+            n = pm.normalize(pm.cross(v1 - v0, v2 - v0))
+            return (torch.minimum(torch.minimum(u, v), 1.0 - u - v).abs(),
+                    pm.dot(r[:, 3:6], n).abs())
+
+        (em, cm), (ex, cx) = edge_cos(sm[both][off]), edge_cos(sx[both][off])
+        near = torch.minimum(em, ex)              # either winner's edge
+        edge = near < 1e-3
+        graze = ~edge & (torch.minimum(cm, cx) < 1e-2)
+        n_edge, n_graze = int(edge.sum()), int(graze.sum())
+        worst = float(near.max())
+    n_off = int(off.sum())
+    log(f"[kernels]   mxu vs mt: {int((~agree_hit).sum())} of "
+        f"{agree_hit.numel()} lanes disagree on hit/miss, "
+        f"{int((~same).sum())} of {same.numel()} joint hits on the slot; "
+        f"t off the bound on {int(off[same].sum())} same-winner and "
+        f"{int(off[~same].sum())} other-winner lanes ({n_edge} within 1e-3 "
+        f"of an edge of either winner, {n_graze} grazing, "
+        f"{n_off - n_edge - n_graze} neither; largest edge distance "
+        f"{worst:.3g})")
+    require(hit_parity > 0.995, f"mxu hit parity {hit_parity}")
+    require(slot_parity > 0.99, f"mxu slot parity {slot_parity}")
+    require(n_off <= 1e-4 * both.sum(), f"mxu t off the bound: {n_off}")
+    return hit_parity, slot_parity
 
 
 def bench_setup(dev, target_tris=100_000):
@@ -132,6 +245,8 @@ def phase_kernels(scene, cam, cfg, dev):
     nsb = ps.n_superblocks
     sb_rows = cull.box_rows_from_blocks(ps.sb_lo, ps.sb_hi)
     sbbox = cull.sb_box_table(ps.block_lo, ps.block_hi)
+    coef = si.mxu_planes_from_planes(
+        ps.planes, 0.5 * (scene.bvh.lo[0] + scene.bvh.hi[0]))
     rows = {}
     for name, (o_, d_, alive_) in ray_sets.items():
         t_cap = torch.where(alive_, INF_DIST, 0.0)
@@ -160,11 +275,46 @@ def phase_kernels(scene, cam, cfg, dev):
         si_err = (t - t_p).abs().max().item()
         require(torch.equal(t, t_p) and torch.equal(slot, slot_p),
                 f"{name}: sb_intersect (t, slot) != plain")
+        t2, slot2 = si.sb_intersect_mt2(pt, psb, pm, n_real, rays, ps.planes)
+        require(torch.equal(t2, t) and torch.equal(slot2, slot),
+                f"{name}: sb_intersect_mt2 (t, slot) != sb_intersect")
+        require(torch.equal(t2, t_p) and torch.equal(slot2, slot_p),
+                f"{name}: sb_intersect_mt2 (t, slot) != plain")
+        tx, slotx = si.sb_intersect_mxu(pt, psb, pm, n_real, rays, coef)
+        tx_p, slotx_p = si.sb_intersect_mxu_plain(pt, psb, pm, n_real, rays,
+                                                  coef, chunk=64)
+        mxu_err = (tx - tx_p).abs().max().item()
+        require(torch.equal(tx, tx_p) and torch.equal(slotx, slotx_p),
+                f"{name}: sb_intersect_mxu (t, slot) != plain")
+        live = rays[:r, 6] > 0
+        hit_par, slot_par = mxu_bounds(scene, rays[:r][live], t[:r][live],
+                                       tx[:r][live], slot[:r][live],
+                                       slotx[:r][live])
         n_hit = int((slot[:nt * 128] >= 0).sum())
         n_sub = int(sum(((pm >> k) & 1).sum() for k in range(8)))
         log(f"[kernels] {name}: {r} rays, {nt} tiles, n_live "
             f"{int(n_live)}, {int(n_real)} round-1 pairs, {n_sub} live "
-            f"sub-blocks, {n_hit} hits; kernels == plain exactly")
+            f"sub-blocks, {n_hit} hits; kernels == plain exactly, mt2 == mt "
+            f"exactly; mxu vs mt: hit parity {hit_par:.6f}, slot parity "
+            f"{slot_par:.6f}")
+
+        # bounds from this run's inputs: every input read once, every
+        # output written once; operations of the tests this data needs
+        n_rows, nb = rays.shape[0], sb_rows.shape[1]
+        ray_b, pair_b = n_rows * 16 * 4, int(n_real) * 4
+        bounds = {
+            "block_cull": bound(int(n_live) * 128 * nsb * SLAB_OPS,
+                                ray_b + sb_rows.numel() * 4 + nt * nb * 4),
+            "pair_cull": bound(int(n_real) * 128 * 8 * SLAB_OPS,
+                               ray_b + 3 * pair_b + sbbox.numel() * 4),
+            "sb_intersect": bound(n_sub * 128 * 128 * MT_OPS,
+                                  ray_b + 3 * pair_b + ps.planes.numel() * 4
+                                  + n_rows * 8),
+            "sb_intersect_mxu": bound(n_sub * 128 * 128 * MXU_OPS,
+                                      ray_b + 3 * pair_b + coef.numel() * 4
+                                      + n_rows * 8),
+        }
+        bounds["sb_intersect_mt2"] = bounds["sb_intersect"]
 
         times = {
             "block_cull": (cuda_ms(lambda: cull.block_cull(
@@ -180,11 +330,25 @@ def phase_kernels(scene, cam, cfg, dev):
                 lambda: si.sb_intersect_plain(pt, psb, pm, n_real, rays,
                                               ps.planes, chunk=128), 1),
                 si_err),
+            "sb_intersect_mt2": (cuda_ms(lambda: si.sb_intersect_mt2(
+                pt, psb, pm, n_real, rays, ps.planes), 5), None,
+                (t2 - t_p).abs().max().item()),
+            "sb_intersect_mxu": (cuda_ms(lambda: si.sb_intersect_mxu(
+                pt, psb, pm, n_real, rays, coef), 5), cuda_ms(
+                lambda: si.sb_intersect_mxu_plain(pt, psb, pm, n_real, rays,
+                                                  coef, chunk=64), 1),
+                mxu_err),
         }
+        # "mt2" computes the "mt" function: one plain version, timed once
+        times["sb_intersect_mt2"] = ((times["sb_intersect_mt2"][0],
+                                      times["sb_intersect"][1])
+                                     + times["sb_intersect_mt2"][2:])
         for k, (ms, pms, err) in times.items():
+            times[k] = (ms, pms, err) + bounds[k]
             log(f"[kernels] {name} {k}: kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms ({pms / ms:.1f}x), max |kernel - plain| "
-                f"{err}")
+                f"{pms:.4f} ms ({pms / ms:.1f}x), bound {bounds[k][0]:.4f} "
+                f"ms by {bounds[k][1]} ({bounds[k][0] / ms:.3f} of it), "
+                f"max |kernel - plain| {err}")
         rows[name] = times
     return rows
 
@@ -226,7 +390,6 @@ def plain_versions():
 def phase_frame(scene, cam, cfg, dev, n_frames=3):
     import torch
     from prismarine_core_tpu_torch.accel import packet as pk
-    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
     from prismarine_core_tpu_torch.ops.sampling import (
         make_coherent_sample_arrays)
     from prismarine_core_tpu_torch.render.integrator import (
@@ -234,24 +397,22 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cam_s, bounce_s = make_coherent_sample_arrays(gen, cfg, block=(64, 64))
-    wrappers = {"block_cull": cull.block_cull, "pair_cull": cull.pair_cull,
-                "sb_intersect": si.sb_intersect}
 
     # the main-path run: counters from 0, read right after
-    for w in wrappers.values():
-        w.launches = 0
+    read = zero_launches()
     syncs0 = pk.compact_pairs.host_syncs
     t0 = time.perf_counter()
     img, stats = render_with_samples(scene, cam, cfg, cam_s, bounce_s,
                                      with_stats=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read()
     compactions = pk.compact_pairs.host_syncs - syncs0
     log(f"[frame] first frame {first_s:.3f} s; launches {launches}; "
         f"{compactions} pair compactions")
-    for k, n in launches.items():
-        require(0 < n <= MAX_LAUNCHES, f"{k}: {n} launches")
+    for k in ("block_cull", "pair_cull", "sb_intersect"):
+        require(0 < launches[k] <= MAX_LAUNCHES, f"{k}: {launches[k]} "
+                "launches")
     require(img.shape == (H, W, 3), f"image shape {tuple(img.shape)}")
     require(bool(torch.isfinite(img).all()), "non-finite image")
     mean = float(img.mean())
@@ -287,6 +448,8 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3):
         f"({compactions} of them pair compactions); peak memory "
         f"{peak / 2**20:.1f} MiB")
     log(f"[frame] host syncs by source line: {dict(sources.most_common())}")
+    result["profile"] = profile_once(lambda: render_with_samples(
+        scene, cam, cfg, cam_s, bounce_s), "frame")
     return img, result, (cam_s, bounce_s)
 
 
@@ -307,6 +470,196 @@ def phase_parity(scene, cam, cfg, img, samples):
     require(close >= 0.98, f"pixel parity {close}")
     require(abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean()),
             f"image mean {a.mean()} vs plain {b.mean()}")
+
+
+def zero_launches():
+    """Every kernel wrapper's launch count, set to 0; returns a reader."""
+    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
+    wrappers = {"block_cull": cull.block_cull, "pair_cull": cull.pair_cull,
+                "sb_intersect": si.sb_intersect,
+                "sb_intersect_mt2": si.sb_intersect_mt2,
+                "sb_intersect_mxu": si.sb_intersect_mxu}
+    for w in wrappers.values():
+        w.launches = 0
+    return lambda: {k: w.launches for k, w in wrappers.items()}
+
+
+def phase_frame_mt2(scene, cam, cfg, img, samples, n_frames=3):
+    """The bench frame under kernel_form="mt2": bit-identical to "mt"."""
+    import torch
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    cfg2 = cfg.replace(kernel_form="mt2")
+    read = zero_launches()
+    img2 = render_with_samples(scene, cam, cfg2, *samples)
+    torch.cuda.synchronize()
+    launches = read()
+    log(f"[frame mt2] launches {launches}")
+    require(0 < launches["sb_intersect_mt2"] <= MAX_LAUNCHES,
+            f"sb_intersect_mt2: {launches['sb_intersect_mt2']} launches")
+    require(launches["sb_intersect"] == 0, "the mt2 frame ran sb_intersect")
+    require(torch.equal(img2, img), "mt2 frame != mt frame")
+    times = []
+    for _ in range(n_frames):
+        t0 = time.perf_counter()
+        render_with_samples(scene, cam, cfg2, *samples)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * sum(times) / n_frames
+    log(f"[frame mt2] bit-identical to the mt frame; {ms:.3f} ms/frame over "
+        f"{n_frames} frames ({', '.join(f'{1e3 * t:.3f}' for t in times)})")
+    return dict(ms_per_frame=ms, frame_ms=[1e3 * t for t in times],
+                launches=launches)
+
+
+def _cos(a, b):
+    import torch
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float(torch.dot(a, b) / (a.norm() * b.norm() + 1e-300))
+
+
+def _finite_nonzero(tensors, what):
+    import torch
+    for k, t in tensors.items():
+        require(bool(torch.isfinite(t).all()), f"{what} {k} not finite")
+        require(bool((t != 0).any()), f"{what} {k} all zero")
+
+
+#: device-op groups of a profile, by the first matching name fragment
+OP_GROUPS = (("port kernels", ("cull_kernel", "sb_intersect")),
+             ("index/scatter", ("index", "scatter")),
+             ("gather", ("gather",)),
+             ("sort", ("sort", "radix")),
+             ("memcpy/memset", ("memcpy", "memset")),
+             ("elementwise/reduction glue", ("",)))
+
+
+def profile_once(fn, tag):
+    """``fn()`` once under torch.profiler (CPU + CUDA activities): wall
+    ms, device busy ms (the sum of device ops' self times), the idle
+    share, device time by OP_GROUPS and the top ops by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops.sort(key=dev_us, reverse=True)
+    rows = [(e.key[:90], e.count, dev_us(e) / 1e3) for e in ops]
+    busy = sum(r[2] for r in rows)
+    groups = {g: [0.0, 0] for g, _ in OP_GROUPS}
+    for name, n, ms in rows:
+        g = next(g for g, frags in OP_GROUPS
+                 if any(f in name.lower() for f in frags))
+        groups[g][0] += ms
+        groups[g][1] += n
+    log(f"[{tag} profile] wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+        f"idle share {1 - busy / wall:.4f}, {sum(r[1] for r in rows)} "
+        "device ops")
+    for g, (ms, n) in groups.items():
+        log(f"[{tag} profile]   {ms / max(busy, 1e-9):.4f} of busy  "
+            f"{ms:9.3f} ms  "
+            f"x{n:<5d} {g}")
+    for name, n, ms in rows[:15]:
+        log(f"[{tag} profile]   {ms:9.3f} ms  x{n:<5d} {name}")
+    return dict(wall_ms=wall, busy_ms=busy,
+                groups_ms={g: v[0] for g, v in groups.items()})
+
+
+def phase_train(scene, cam, cfg, dev, target, samples):
+    """The inverse-rendering train step at full width under "mxu"."""
+    import torch
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        init_params, make_train_step)
+    cfg_x = cfg.replace(kernel_form="mxu")
+    start = {k: v.clone() for k, v in init_params(scene).items()}
+    start["mat_diffuse"][:, :3] *= 0.5
+    args = (scene, cam, *samples, target)
+    step = make_train_step(None, cfg_x, **TRAIN_KW)
+
+    # one step from the start under each form
+    p_mt, loss_mt = make_train_step(None, cfg, **TRAIN_KW)(start, *args)
+    read = zero_launches()
+    p_x, loss_x = step(start, *args)
+    torch.cuda.synchronize()
+    launches = read()
+    loss_mt, loss_x = float(loss_mt), float(loss_x)
+    rel = abs(loss_x - loss_mt) / loss_mt
+    cosines = {k: _cos(p_x[k] - start[k], p_mt[k] - start[k])
+               for k in start}
+    log(f"[train] one step from the start: loss mt {loss_mt:.9g}, mxu "
+        f"{loss_x:.9g} (rel {rel:.3g}); cosine of the updates (= of the "
+        f"gradients) mxu vs mt: "
+        f"{ {k: round(c, 6) for k, c in cosines.items()} }; launches "
+        f"{launches}")
+    require(rel <= 5e-3, f"mt vs mxu loss {rel}")
+    require(launches["sb_intersect_mxu"] > 0, "no sb_intersect_mxu launch")
+    require(launches["sb_intersect"] == 0, "the mxu step ran sb_intersect")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, losses, times = start, [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        new, loss = step(params, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        _finite_nonzero({k: new[k] - params[k] for k in new}, "update")
+        params = new
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(all(map(math.isfinite, losses)), f"losses {losses}")
+    require(losses[-1] < losses[0], f"no descent: {losses}")
+    ms = 1e3 * sum(times[1:]) / (TRAIN_STEPS - 1)
+
+    # the step's two halves, timed apart (the same calls the step makes)
+    fwd, bwd = [], []
+    for _ in range(3):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        t0 = time.perf_counter()
+        loss = step.loss_fn(leaves, *args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        step.update(params, dict(zip(leaves, grads)))
+        torch.cuda.synchronize()
+        fwd.append(t1 - t0)
+        bwd.append(time.perf_counter() - t1)
+        _finite_nonzero(dict(zip(leaves, grads)), "gradient")
+    fwd_ms, bwd_ms = 1e3 * sum(fwd) / 3, 1e3 * sum(bwd) / 3
+    log(f"[train] {TRAIN_STEPS} steps under mxu: losses "
+        f"{[round(v, 9) for v in losses]}; {ms:.3f} ms/step over steps "
+        f"2..{TRAIN_STEPS} ({', '.join(f'{1e3 * t:.3f}' for t in times)}); "
+        f"forward {fwd_ms:.3f} ms, backward + update {bwd_ms:.3f} ms; peak "
+        f"memory {peak / 2**20:.1f} MiB")
+    prof = profile_once(lambda: step(params, *args), "train")
+
+    # the cornell box's vertex rate on the hall, for the record (no
+    # requirement; PERF.md, section 6)
+    ref_step = make_train_step(None, cfg_x, **CORNELL_KW)
+    params, ref_losses, ref_moves = start, [], []
+    for _ in range(TRAIN_STEPS):
+        new, loss = ref_step(params, *args)
+        ref_losses.append(float(loss))
+        ref_moves.append(float((new["v0"] - params["v0"]).abs().max()))
+        params = new
+    log(f"[train] cornell vertex rate 0.01 on the hall: losses "
+        f"{[round(v, 9) for v in ref_losses]}; largest v0 move per step "
+        f"{[round(v, 6) for v in ref_moves]}")
+    return dict(ms_per_step=ms, step_ms=[1e3 * t for t in times],
+                forward_ms=fwd_ms, backward_update_ms=bwd_ms,
+                peak_mem_bytes=peak, losses=losses, loss_mt=loss_mt,
+                loss_mxu=loss_x, update_cosine=cosines, launches=launches,
+                profile=prof, cornell_rate_losses=ref_losses)
 
 
 def main() -> int:
@@ -344,7 +697,14 @@ def main() -> int:
     ktimes = phase_kernels(scene, cam, cfg, dev)
     img, frame, samples = phase_frame(scene, cam, cfg, dev)
     phase_parity(scene, cam, cfg, img, samples)
+    frame2 = phase_frame_mt2(scene, cam, cfg, img, samples)
+    train = phase_train(scene, cam, cfg, dev, img, samples)
 
+    # each kernel's launches on its path: the frame's for the "mt" path
+    # kernels, the "mt2" frame's and one train step's for the other forms
+    launches = dict(frame["launches"])
+    launches["sb_intersect_mt2"] = frame2["launches"]["sb_intersect_mt2"]
+    launches["sb_intersect_mxu"] = train["launches"]["sb_intersect_mxu"]
     replaces = {
         "block_cull": ("prismarine_core_tpu_torch/csrc/cull.cu",
                        "prismarine_core_tpu/ops/pallas_cull.py:51"),
@@ -352,15 +712,27 @@ def main() -> int:
                       "prismarine_core_tpu/ops/pallas_cull.py:200"),
         "sb_intersect": ("prismarine_core_tpu_torch/csrc/sb_intersect.cu",
                          "prismarine_core_tpu/ops/pallas_intersect.py:85"),
+        "sb_intersect_mt2": ("prismarine_core_tpu_torch/csrc/sb_intersect.cu",
+                             "prismarine_core_tpu/ops/pallas_intersect.py:201"),
+        "sb_intersect_mxu": (
+            "prismarine_core_tpu_torch/csrc/sb_intersect_mxu.cu",
+            "prismarine_core_tpu/ops/pallas_intersect.py:397"),
     }
     table = {"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],
-         "replaces": replaces[k][1], "launches": frame["launches"][k],
+         "replaces": replaces[k][1], "launches": launches[k],
+         "launches_by_path": {"frame_mt": frame["launches"][k],
+                              "frame_mt2": frame2["launches"][k],
+                              "train_step_mxu": train["launches"][k]},
          "max_abs_err": max(ktimes[s][k][2] for s in ktimes),
          "ms": ktimes["bounce1"][k][0], "plain_ms": ktimes["bounce1"][k][1],
+         "bound_ms": ktimes["bounce1"][k][3],
+         "bound_by": ktimes["bounce1"][k][4], "library_ms": None,
          "shape": "bounce-1 rays, round 1 of the closest query"}
         for k in KERNELS],
         "frame": {k: v for k, v in frame.items() if k != "launches"},
+        "frame_mt2": {k: v for k, v in frame2.items() if k != "launches"},
+        "train": {k: v for k, v in train.items() if k != "launches"},
         "card": smi}
     log(json.dumps(table))
     log(smi)

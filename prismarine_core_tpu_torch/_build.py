@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
 At the first CUDA launch, ``library()`` compiles every ``csrc/*.cu`` with
-nvcc into one shared library with a plain C interface, under
+nvcc (one process per source, all started together, then one link) into
+one shared library with a plain C interface, under
 ``build/torch_kernels/`` beside the package (a directory git ignores), and
 loads it with ``ctypes``.  The library's file name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "sb_intersect_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _P),
 }
+# the "mt2" and "mxu" pair intersectors take the same arguments
+_SIGNATURES["sb_intersect_mt2_launch"] = _SIGNATURES["sb_intersect_launch"]
+_SIGNATURES["sb_intersect_mxu_launch"] = _SIGNATURES["sb_intersect_launch"]
 
 _lib = None
 
@@ -75,15 +79,27 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (p.stem + ".o") for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
+                 "-o", str(o), str(p)] for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[1] for p in procs]   # waits for every one
         tmp_out = Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
-               "-o", str(tmp_out), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_out),
+                *map(str, objs)]
+        for cmd, proc, err in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(proc.stderr)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stderr}")
+        (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text("".join(logs))
         os.replace(tmp_out, out)          # atomic: no half-written library
     return out
 
@@ -115,7 +131,8 @@ def stream_ptr(device) -> int:
 def check_tensor(t, dtype, shape, name, device=None, numel=None):
     """Validate a kernel argument before its pointer is passed: a CUDA
     tensor (on ``device`` when given) of ``dtype``, ``shape`` (or
-    ``numel`` elements), contiguous."""
+    ``numel`` elements), contiguous, outside any autograd graph (a kernel
+    sees only the pointer)."""
     import torch
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
@@ -132,3 +149,6 @@ def check_tensor(t, dtype, shape, name, device=None, numel=None):
         raise ValueError(f"{name} must hold {numel} element(s)")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.requires_grad:
+        raise ValueError(f"{name} requires grad: detach it before the "
+                         "kernel (no gradient flows through a kernel)")

@@ -10,8 +10,12 @@ The counterpart of the ``cull_impl="pallas2"`` path of
    superblocks of 8 blocks, with AABBs and SoA planes (``PacketSet``);
 3. ``block_cull`` gives every (tile, superblock) entry distance;
 4. candidate pairs compact tile-major (``compact_pairs``), ``pair_cull``
-   refines each to an 8-bit block mask, and ``sb_intersect`` runs the
-   Moller-Trumbore of every live sub-block, keeping per-ray closest hits;
+   refines each to an 8-bit block mask, and the pair intersector of the
+   chosen ``kernel_form`` runs the Moller-Trumbore of every live
+   sub-block, keeping per-ray closest hits: "mt" (``sb_intersect``),
+   "mt2" (``sb_intersect_mt2``, the same result bit for bit) or "mxu"
+   (``sb_intersect_mxu`` on coefficient planes built per query by
+   ``mxu_planes_from_planes``);
 5. "two_round" (closest-hit): each tile's K nearest superblocks first,
    then one re-cull of the rest under the tightened per-ray caps;
    "single": every candidate pair at once.
@@ -20,8 +24,10 @@ The JAX path pads pair lists to static lengths, aligns them to the TPU
 kernel's pairs-per-step and runs them in while-loop windows; here lists
 have their exact length (``nonzero``, one host sync per compaction, counted
 in ``compact_pairs.host_syncs``) and each runs in one launch per kernel.
-No gradient flows through the query: ``_reeval_hit`` re-evaluates the
-winning triangle.
+No gradient flows through the query: the entry points detach every
+query input (the JAX package's ``stop_gradient``), and ``_reeval_hit``
+re-evaluates the winning triangle differentiably from the soup and the
+caller's ``o`` and ``d``.
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ from prismarine_core_tpu_torch.ops.cull import (
 from prismarine_core_tpu_torch.ops.intersect import Hit, moller_trumbore
 from prismarine_core_tpu_torch.ops.morton import morton30
 from prismarine_core_tpu_torch.ops.sb_intersect import (
-    BLOCK, RAY_COLS, RC_TCAP, SB, TILE, sb_intersect)
+    BLOCK, RAY_COLS, RC_CX, RC_ONE, RC_TCAP, SB, TILE,
+    mxu_planes_from_planes, sb_intersect, sb_intersect_mt2,
+    sb_intersect_mxu)
 from prismarine_core_tpu_torch.utils.config import INF_DIST, check_query_knobs
-from prismarine_core_tpu_torch.utils.math import safe_rcp
+from prismarine_core_tpu_torch.utils.math import cross, safe_rcp, take_rows
 
 #: default round-1 budget of "two_round": each tile's K nearest
 #: superblocks
@@ -155,10 +163,11 @@ def _coherence_perm(root_lo, root_hi, o, d, t_cap):
 
 def _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap, order=None):
     """Kernel ray matrix f32[(nt+1)*TILE, 16] in coherence order (columns
-    o, d, t_cap, ., inv d; the JAX package's extra columns for its matmul
-    kernel form stay zero), padded with dead rays (o = (0, 0, 1e8),
-    d = (1, 0, 0), t_cap = 0) to a tile multiple plus one all-zero
-    sentinel tile.  Returns (rays, (perm, inv_perm), n_rays)."""
+    o, d, t_cap, 1, inv d, c = (o - center) x d with center the middle of
+    the root box; the last two feed only the "mxu" form), padded with
+    dead rays (o = (0, 0, 1e8), d = (1, 0, 0), t_cap = 0, the constant
+    and c columns 0) to a tile multiple plus one all-zero sentinel tile.
+    Returns (rays, (perm, inv_perm), n_rays)."""
     r = o.shape[0]
     dev = o.device
     if order is None:
@@ -171,6 +180,8 @@ def _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap, order=None):
     cols[:, 3:6] = d
     cols[:, RC_TCAP] = t_cap
     cols[:, 8:11] = safe_rcp(d)
+    cols[:, RC_ONE] = 1.0
+    cols[:, RC_CX:RC_CX + 3] = cross(o - 0.5 * (root_lo + root_hi), d)
     rays[:r] = cols[order[0]]                   # the one row gather
     dead = rays[r:nt * TILE]
     dead[:, 2] = 1e8
@@ -222,6 +233,16 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
 
     rays, order, r = _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap,
                                          order)
+    # the pair intersector of the kernel form (looked up per call, so a
+    # caller may swap a module-level kernel for its plain version); "mxu"
+    # runs on coefficient planes built from the packet set per query, as
+    # in the JAX package
+    if kernel_form == "mxu":
+        intersect = sb_intersect_mxu
+        planes = mxu_planes_from_planes(ps.planes, 0.5 * (root_lo + root_hi))
+    else:
+        intersect = sb_intersect_mt2 if kernel_form == "mt2" else sb_intersect
+        planes = ps.planes
     nt = rays.shape[0] // TILE - 1
     nsb = ps.n_superblocks
     dev = rays.device
@@ -238,7 +259,7 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
     def run(mask, cull_rays, prior=None, cols=None):
         pt, psb, n_real = compact_pairs(mask, cols)
         pm = pair_cull(pt, psb, n_real, cull_rays, sbbox)
-        return sb_intersect(pt, psb, pm, n_real, rays, ps.planes, prior)
+        return intersect(pt, psb, pm, n_real, rays, planes, prior)
 
     if strategy == "single":
         out = run(sb_mask, rays)
@@ -271,15 +292,27 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
 
 
 def _reeval_hit(bvh, soup, o, d, slot) -> Hit:
-    """Re-evaluate the winning triangle of each ray (barycentrics, t)."""
+    """Re-evaluate the winning triangle of each ray (barycentrics, t):
+    differentiable in ``soup.v0/v1/v2`` and in ``o`` and ``d``; the slot
+    is discrete."""
     tri = torch.where(slot >= 0, bvh.orig[torch.clamp(slot, min=0).long()],
                       -1)
     trix = torch.clamp(tri, min=0).long()
-    t, u, v, _ = moller_trumbore(o, d, soup.v0[trix], soup.v1[trix],
-                                 soup.v2[trix])
+    t, u, v, _ = moller_trumbore(o, d, take_rows(soup.v0, trix),
+                                 take_rows(soup.v1, trix),
+                                 take_rows(soup.v2, trix))
     hitm = tri >= 0
     return Hit(t=torch.where(hitm, t, INF_DIST), tri=tri,
                u=torch.where(hitm, u, 0.0), v=torch.where(hitm, v, 0.0))
+
+
+def _detached(bvh, ps: PacketSet, o, d, t_cap):
+    """The query's inputs (root box, packet set, rays, caps) outside any
+    autograd graph."""
+    ps = PacketSet(**{f.name: getattr(ps, f.name).detach()
+                      for f in dataclasses.fields(ps)})
+    return (bvh.lo[0].detach(), bvh.hi[0].detach(), ps, o.detach(),
+            d.detach(), t_cap.detach())
 
 
 def intersect_closest_pallas(bvh, ps: PacketSet, soup, o, d, t_cap=None,
@@ -288,18 +321,20 @@ def intersect_closest_pallas(bvh, ps: PacketSet, soup, o, d, t_cap=None,
     is a per-lane far limit; 0 removes a lane from every pair list.
     ``return_order`` also returns the coherence sort for reuse by the
     same bounce's shadow query.  ``**kw``: strategy knobs of
-    ``_run_packet_pallas``."""
+    ``_run_packet_pallas``.  The query runs on detached inputs; gradients
+    reach ``o``, ``d`` and the soup through ``_reeval_hit``."""
     if t_cap is None:
         t_cap = torch.full((o.shape[0],), INF_DIST, device=o.device)
-    slot, order = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
-                                     t_cap, order=order, **kw)
+    slot, order = _run_packet_pallas(*_detached(bvh, ps, o, d, t_cap),
+                                     order=order, **kw)
     hit = _reeval_hit(bvh, soup, o, d, slot)
     return (hit, order) if return_order else hit
 
 
 def occluded_pallas(bvh, ps: PacketSet, soup, o, d, t_max, order=None,
                     **kw):
-    """Any-hit query: True where some triangle lies in (PZERO, t_max)."""
-    slot, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d, t_max,
+    """Any-hit query: True where some triangle lies in (PZERO, t_max)
+    (no gradient)."""
+    slot, _ = _run_packet_pallas(*_detached(bvh, ps, o, d, t_max),
                                  any_hit=True, order=order, **kw)
     return slot >= 0

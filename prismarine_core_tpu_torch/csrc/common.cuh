@@ -1,6 +1,7 @@
 // Shared constants of the packet-query kernels.  They mirror the JAX
 // package's layouts (prismarine_core_tpu/ops/pallas_intersect.py):
-//   rays   f32[(nt+1)*TILE, RAY_COLS], columns [ox oy oz dx dy dz t_cap . ivx ivy ivz ...]
+//   rays   f32[(nt+1)*TILE, RAY_COLS], columns [ox oy oz dx dy dz t_cap one ivx ivy ivz
+//          cx cy cz .] (one and c = (o - center) x d feed only the "mxu" form)
 //   planes f32[nsb+1, PLANE_ROWS, SB*BLOCK], rows [v0xyz e1xyz e2xyz valid 0...],
 //          sub-block k on lanes [k*BLOCK, (k+1)*BLOCK); superblock nsb is all zero
 #pragma once
@@ -20,7 +21,9 @@ constexpr int BOX_ROWS = 8;      // lo_xyz hi_xyz pad pad
 constexpr int RC_OX = 0, RC_OY = 1, RC_OZ = 2;
 constexpr int RC_DX = 3, RC_DY = 4, RC_DZ = 5;
 constexpr int RC_TCAP = 6;
+constexpr int RC_ONE = 7;
 constexpr int RC_IVX = 8, RC_IVY = 9, RC_IVZ = 10;
+constexpr int RC_CX = 11, RC_CY = 12, RC_CZ = 13;
 
 constexpr int TC_V0X = 0, TC_V0Y = 1, TC_V0Z = 2;
 constexpr int TC_E1X = 3, TC_E1Y = 4, TC_E1Z = 5;

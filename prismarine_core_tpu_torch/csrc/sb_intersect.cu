@@ -1,10 +1,12 @@
-// Fused (ray tile x superblock) Moller-Trumbore pair intersector
-// (wrapper: ops/sb_intersect.py).
+// Fused (ray tile x superblock) Moller-Trumbore pair intersector, forms
+// "mt" and "mt2" (wrappers: ops/sb_intersect.py sb_intersect and
+// sb_intersect_mt2).
 //
 // Replaces prismarine_core_tpu/ops/pallas_intersect.py:_sb_kernel (form
-// "mt", driven by pallas_sb_intersect_windowed): for each pair and each set
-// bit k of its 8-bit mask, a 128-ray x 128-triangle Moller-Trumbore of the
-// pair's tile against sub-block k.  Each ray keeps its closest (t, slot),
+// "mt") and _sb_kernel_mt2 (form "mt2"), driven by
+// pallas_sb_intersect_windowed: for each pair and each set bit k of its
+// 8-bit mask, a 128-ray x 128-triangle Moller-Trumbore of the pair's tile
+// against sub-block k.  Each ray keeps its closest (t, slot),
 // slot = sb*1024 + k*128 + lane, starting from the prior result or from
 // (t_cap, -1); only t strictly below the running best replaces it, so a
 // hit at exactly t_cap is rejected.  Tie rule: among equal t the earliest
@@ -26,10 +28,46 @@
 // pairs write their initial value, so the output is complete.  The math
 // is the Pallas body's, operation for operation, and the library is built
 // with -fmad=false, so t and slot equal the plain version's bit for bit.
+//
+// Form "mt2" (kPaired): each group of two sub-blocks (k0, k0+1) runs in
+// one region when either mask bit is set.  Both Moller-Trumbore chains are
+// computed in one loop body over 2 x 10 staged plane rows (10 KB), so the
+// compiler can interleave two independent dependency chains; the dead
+// sub-block's result is dropped.  Each chain keeps its own first-minimum
+// (t, lane) over the region, and k0 folds into the running best before
+// k0+1: the same fold as the sequential "mt" walk, so "mt2" equals "mt"
+// bit for bit, ties included.
 #include "common.cuh"
 
 namespace prismarine {
 
+// Moller-Trumbore of one ray against staged sub-block row j: t, or
+// INF_DIST on a miss (the Pallas body's operation order).
+__device__ __forceinline__ float mt_test(const float (*tri)[BLOCK], int j,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz) {
+  const float e1x = tri[TC_E1X][j], e1y = tri[TC_E1Y][j], e1z = tri[TC_E1Z][j];
+  const float e2x = tri[TC_E2X][j], e2y = tri[TC_E2Y][j], e2z = tri[TC_E2Z][j];
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float inv = 1.0f / (fabsf(det) < DET_EPS ? DET_EPS : det);
+  const float sx = ox - tri[TC_V0X][j];
+  const float sy = oy - tri[TC_V0Y][j];
+  const float sz = oz - tri[TC_V0Z][j];
+  const float uu = (sx * px + sy * py + sz * pz) * inv;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float vv = (dx * qx + dy * qy + dz * qz) * inv;
+  const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  const bool ok = (fabsf(det) >= DET_EPS) && (uu >= 0.0f) && (vv >= 0.0f) &&
+                  (uu + vv <= 1.0f) && (tt > PZERO) && (tri[TC_VALID][j] > 0.5f);
+  return ok ? tt : INF_DIST;
+}
+
+template <bool kPaired>
 __global__ void __launch_bounds__(TILE)
 sb_intersect_kernel(const int* __restrict__ tile_start,
                     const int* __restrict__ pair_sb,
@@ -40,7 +78,8 @@ sb_intersect_kernel(const int* __restrict__ tile_start,
                     const float* __restrict__ prior_t,
                     const int* __restrict__ prior_slot,
                     float* __restrict__ out_t, int* __restrict__ out_slot) {
-  __shared__ float s_tri[TC_USED][BLOCK];
+  constexpr int kSubs = kPaired ? 2 : 1;        // sub-blocks per region
+  __shared__ float s_tri[kSubs][TC_USED][BLOCK];
   const int tile = blockIdx.x;
   const int lane = threadIdx.x;
   const size_t row = static_cast<size_t>(tile) * TILE + lane;
@@ -62,47 +101,74 @@ sb_intersect_kernel(const int* __restrict__ tile_start,
     const int mask = pair_mask[p];              // uniform over the block
     const int sb = pair_sb[p];
     const float* pl = planes + static_cast<size_t>(sb) * PLANE_ROWS * SB_LANES;
-    for (int k = 0; k < SB; ++k) {
-      if (((mask >> k) & 1) == 0) continue;
-      __syncthreads();                          // last sub-block consumed
+    for (int k0 = 0; k0 < SB; k0 += kSubs) {
+      const int bits = (mask >> k0) & ((1 << kSubs) - 1);
+      if (bits == 0) continue;
+      __syncthreads();                          // last region consumed
 #pragma unroll
-      for (int c = 0; c < TC_USED; ++c)
-        s_tri[c][lane] = pl[c * SB_LANES + k * BLOCK + lane];
+      for (int h = 0; h < kSubs; ++h)
+#pragma unroll
+        for (int c = 0; c < TC_USED; ++c)
+          s_tri[h][c][lane] = pl[c * SB_LANES + (k0 + h) * BLOCK + lane];
       __syncthreads();
-      const int slot_base = sb * SB_LANES + k * BLOCK;
+      const int slot_base = sb * SB_LANES + k0 * BLOCK;
+      if constexpr (!kPaired) {
 #pragma unroll 2
-      for (int j = 0; j < BLOCK; ++j) {
-        const float e1x = s_tri[TC_E1X][j], e1y = s_tri[TC_E1Y][j],
-                    e1z = s_tri[TC_E1Z][j];
-        const float e2x = s_tri[TC_E2X][j], e2y = s_tri[TC_E2Y][j],
-                    e2z = s_tri[TC_E2Z][j];
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv = 1.0f / (fabsf(det) < DET_EPS ? DET_EPS : det);
-        const float sx = ox - s_tri[TC_V0X][j];
-        const float sy = oy - s_tri[TC_V0Y][j];
-        const float sz = oz - s_tri[TC_V0Z][j];
-        const float uu = (sx * px + sy * py + sz * pz) * inv;
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float vv = (dx * qx + dy * qy + dz * qz) * inv;
-        float tt = (e2x * qx + e2y * qy + e2z * qz) * inv;
-        const bool ok = (fabsf(det) >= DET_EPS) && (uu >= 0.0f) &&
-                        (vv >= 0.0f) && (uu + vv <= 1.0f) && (tt > PZERO) &&
-                        (s_tri[TC_VALID][j] > 0.5f);
-        tt = ok ? tt : INF_DIST;
-        if (tt < best_t) {
-          best_t = tt;
-          best_slot = slot_base + j;
+        for (int j = 0; j < BLOCK; ++j) {
+          const float tt = mt_test(s_tri[0], j, ox, oy, oz, dx, dy, dz);
+          if (tt < best_t) {
+            best_t = tt;
+            best_slot = slot_base + j;
+          }
+        }
+      } else {
+        // per-chain first minimum over the region (+inf lies above
+        // every tested t, so the first lane holding the minimum wins)
+        float ta = __int_as_float(0x7f800000), tb = ta;
+        int ja = 0, jb = 0;
+        for (int j = 0; j < BLOCK; ++j) {
+          const float t0 = mt_test(s_tri[0], j, ox, oy, oz, dx, dy, dz);
+          const float t1 = mt_test(s_tri[1], j, ox, oy, oz, dx, dy, dz);
+          if (t0 < ta) {
+            ta = t0;
+            ja = j;
+          }
+          if (t1 < tb) {
+            tb = t1;
+            jb = j;
+          }
+        }
+        if ((bits & 1) && ta < best_t) {       // k0 folds first
+          best_t = ta;
+          best_slot = slot_base + ja;
+        }
+        if ((bits & 2) && tb < best_t) {
+          best_t = tb;
+          best_slot = slot_base + BLOCK + jb;
         }
       }
     }
   }
   out_t[row] = best_t;
   out_slot[row] = best_slot;
+}
+
+template <bool kPaired>
+int launch_pairs(const void* tile_start, const void* pair_sb, const void* pair_mask,
+           const void* n_real, const void* rays, const void* planes,
+           const void* prior_t, const void* prior_slot, void* out_t,
+           void* out_slot, int n_tiles, void* stream) {
+  if (n_tiles > 0) {
+    sb_intersect_kernel<kPaired><<<n_tiles, TILE, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(tile_start), static_cast<const int*>(pair_sb),
+        static_cast<const int*>(pair_mask), static_cast<const int*>(n_real),
+        static_cast<const float*>(rays), static_cast<const float*>(planes),
+        static_cast<const float*>(prior_t),
+        static_cast<const int*>(prior_slot), static_cast<float*>(out_t),
+        static_cast<int*>(out_slot));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace prismarine
@@ -113,16 +179,20 @@ extern "C" int sb_intersect_launch(const void* tile_start, const void* pair_sb,
                                    const void* prior_t, const void* prior_slot,
                                    void* out_t, void* out_slot, int n_tiles,
                                    void* stream) {
-  using namespace prismarine;
-  if (n_tiles > 0) {
-    sb_intersect_kernel<<<n_tiles, TILE, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(tile_start), static_cast<const int*>(pair_sb),
-        static_cast<const int*>(pair_mask), static_cast<const int*>(n_real),
-        static_cast<const float*>(rays), static_cast<const float*>(planes),
-        static_cast<const float*>(prior_t),
-        static_cast<const int*>(prior_slot), static_cast<float*>(out_t),
-        static_cast<int*>(out_slot));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return prismarine::launch_pairs<false>(tile_start, pair_sb, pair_mask, n_real,
+                                   rays, planes, prior_t, prior_slot, out_t,
+                                   out_slot, n_tiles, stream);
+}
+
+extern "C" int sb_intersect_mt2_launch(const void* tile_start,
+                                       const void* pair_sb,
+                                       const void* pair_mask,
+                                       const void* n_real, const void* rays,
+                                       const void* planes, const void* prior_t,
+                                       const void* prior_slot, void* out_t,
+                                       void* out_slot, int n_tiles,
+                                       void* stream) {
+  return prismarine::launch_pairs<true>(tile_start, pair_sb, pair_mask, n_real,
+                                  rays, planes, prior_t, prior_slot, out_t,
+                                  out_slot, n_tiles, stream);
 }

@@ -9,7 +9,8 @@ state as a dict of numpy arrays keyed by dotted field path — for example
 BVH and packet set.  A JAX scene flattened to such a dict (on the JAX
 side) thus crosses over without this package importing jax, and the
 port's query can be held against the JAX query on an identical
-acceleration structure.
+acceleration structure.  ``params_from_numpy`` and ``params_to_numpy``
+carry the train step's parameter dict across the same way.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from prismarine_core_tpu_torch.models.materials import MaterialTable
 from prismarine_core_tpu_torch.models.scene import Scene
 from prismarine_core_tpu_torch.models.textures import (
     Environment, TextureStack)
+from prismarine_core_tpu_torch.utils.device import resolve_device
 
 _GROUPS = {
     "triangles": TriangleSoup,
@@ -42,13 +44,16 @@ def _tensor_fields(cls):
     return [f.name for f in dataclasses.fields(cls)]
 
 
-def scene_from_numpy(arrays: dict, device="cpu") -> Scene:
+def scene_from_numpy(arrays: dict, device=None) -> Scene:
     """Build the port's Scene from ``{"group.field": ndarray}``.
 
     Groups ``triangles``, ``materials``, ``lights`` and ``environment``
     are required; ``bvh`` and ``packets`` are taken when present (both or
     neither).  ``textures.data`` must be the texture-less stub stack (a
-    single all-white texture) if given at all."""
+    single all-white texture) if given at all.  ``device`` None is the
+    CUDA card."""
+    device = resolve_device(device)
+
     def group(name):
         cls = _GROUPS[name]
         kw = {}
@@ -99,3 +104,26 @@ def scene_to_numpy(scene: Scene) -> dict:
             out[f"{name}.{f}"] = getattr(obj, f).detach().cpu().numpy()
     out["textures.data"] = scene.textures.data.detach().cpu().numpy()
     return out
+
+
+#: the keys of the train step's parameter dicts (``parallel/mesh.py``):
+#: corner mode carries v0 (and v1, v2), shared mode carries verts
+PARAM_KEYS = ("mat_diffuse", "light_color", "v0", "v1", "v2", "verts")
+
+
+def params_from_numpy(arrays: dict, device=None) -> dict:
+    """The train step's parameter dict from ``{key: ndarray}`` (keys of
+    ``PARAM_KEYS``: ``init_params``' or ``init_shared_params``' dict), so
+    that both packages start from one state.  ``device`` None is the CUDA
+    card."""
+    device = resolve_device(device)
+    extra = sorted(set(arrays) - set(PARAM_KEYS))
+    if extra:
+        raise KeyError(f"unknown parameter(s) {extra}")
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in arrays.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of ``params_from_numpy``."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -18,6 +18,7 @@ import torch
 
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import RenderConfig
+from prismarine_core_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -29,7 +30,10 @@ class Camera:
 
     @staticmethod
     def look_at(eye, target, up=(0.0, 1.0, 0.0), fov_y_deg: float = 60.0,
-                device="cpu") -> "Camera":
+                device=None) -> "Camera":
+        """``device`` None is the CUDA card."""
+        device = resolve_device(device)
+
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=device)
         return Camera(eye=t(eye), target=t(target), up=t(up),

@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from prismarine_core_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class TriangleSoup:
@@ -45,9 +47,10 @@ class TriangleSoup:
     @staticmethod
     def from_arrays(vertices, faces, normals=None, texcoords=None,
                     mat_ids=None, capacity: int | None = None,
-                    device="cpu") -> "TriangleSoup":
+                    device=None) -> "TriangleSoup":
         """Build from an indexed mesh; area-weighted smooth normals when
-        ``normals`` is None."""
+        ``normals`` is None; ``device`` None is the CUDA card."""
+        device = resolve_device(device)
         vertices = np.asarray(vertices, np.float32)
         faces = np.asarray(faces, np.int64)
         nf = faces.shape[0]

@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from prismarine_core_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class SphereLights:
@@ -26,8 +28,9 @@ class SphereLights:
     def suns(directions=((0.3, 1.0, 0.1),), distance: float = 400.0,
              radius: float = 40.0,
              color=(150.0 * 255 / 255, 150.0 * 250 / 255, 150.0 * 244 / 255),
-             device="cpu") -> "SphereLights":
-        """Reference-default sun(s)."""
+             device=None) -> "SphereLights":
+        """Reference-default sun(s); ``device`` None is the CUDA card."""
+        device = resolve_device(device)
         dirs = np.asarray(directions, np.float32)
         dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
         n = dirs.shape[0]
@@ -40,7 +43,9 @@ class SphereLights:
             color=torch.as_tensor(col, device=device))
 
     @staticmethod
-    def single(center, radius, color, device="cpu") -> "SphereLights":
+    def single(center, radius, color, device=None) -> "SphereLights":
+        device = resolve_device(device)
+
         def t(x):
             return torch.as_tensor(np.asarray([x], np.float32),
                                    device=device)

@@ -14,6 +14,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from prismarine_core_tpu_torch.utils.device import resolve_device
+from prismarine_core_tpu_torch.utils.math import take_rows
+
 _ARRAY_FIELDS = ("diffuse", "specular", "emissive", "transmission", "ior",
                  "tex_diffuse", "tex_specular", "tex_emissive", "tex_bump")
 
@@ -40,14 +43,16 @@ class MaterialTable:
                       self.tex_emissive, self.tex_bump))
 
     def lookup(self, mat_id: torch.Tensor) -> "MaterialTable":
-        """Gather per-ray material records (mat_id: int[R])."""
-        return MaterialTable(**{f: getattr(self, f)[mat_id]
+        """Gather per-ray material records (mat_id: int64[R])."""
+        return MaterialTable(**{f: take_rows(getattr(self, f), mat_id)
                                 for f in _ARRAY_FIELDS})
 
     @staticmethod
-    def build(mats: Sequence[dict], device="cpu") -> "MaterialTable":
+    def build(mats: Sequence[dict], device=None) -> "MaterialTable":
         """From dicts with keys diffuse/alpha/roughness/metallic/emissive/
-        transmission/ior/tex_*; missing keys get the reference defaults."""
+        transmission/ior/tex_*; missing keys get the reference defaults.
+        ``device`` None is the CUDA card."""
+        device = resolve_device(device)
         m = len(mats)
         diffuse = np.zeros((m, 4), np.float32)
         specular = np.zeros((m, 4), np.float32)

@@ -16,6 +16,7 @@ from prismarine_core_tpu_torch.models.lights import SphereLights
 from prismarine_core_tpu_torch.models.materials import MaterialTable
 from prismarine_core_tpu_torch.models.scene import Scene
 from prismarine_core_tpu_torch.models.textures import Environment
+from prismarine_core_tpu_torch.utils.device import resolve_device
 
 
 def _cylinder(center, radius, height, segments, mat_id):
@@ -63,13 +64,15 @@ def _sphere_mesh(center, radius, rows, cols, mat_id):
 
 def make_hall_scene(target_tris: int = 100_000, seed: int = 0,
                     capacity: int | None = None, build_bvh: bool = True,
-                    textured: bool = False, device="cpu") -> Scene:
+                    textured: bool = False, device=None) -> Scene:
     """Colonnaded hall: floor + walls, two rows of segmented columns,
-    sphere clutter — scaled to roughly ``target_tris`` triangles."""
+    sphere clutter — scaled to roughly ``target_tris`` triangles.
+    ``device`` None is the CUDA card."""
     if textured:
         raise NotImplementedError(
             "the textured hall is not ported yet (ROADMAP queue 1, "
             "'Textures and env NEE')")
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     parts = []
 
@@ -125,7 +128,7 @@ def make_hall_scene(target_tris: int = 100_000, seed: int = 0,
 
 def make_sky_environment(resolution: int = 256, sun_dir=(0.5, 0.6, 0.3),
                          turbidity: float = 2.5,
-                         device="cpu") -> Environment:
+                         device=None) -> Environment:
     """Procedural HDR equirect sky (gradient + sun disc + horizon glow)
     through ``Environment.from_image``."""
     h, w = resolution, 2 * resolution

@@ -17,6 +17,7 @@ from prismarine_core_tpu_torch.models.lights import SphereLights
 from prismarine_core_tpu_torch.models.materials import MaterialTable
 from prismarine_core_tpu_torch.models.textures import (
     Environment, TextureStack)
+from prismarine_core_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -62,9 +63,11 @@ class Scene:
                                    packets=build_packet_set(bvh))
 
 
-def make_cornell_scene(capacity: int | None = None, device="cpu") -> Scene:
+def make_cornell_scene(capacity: int | None = None, device=None) -> Scene:
     """Cornell-box-style scene: inward room (red left, green right wall),
-    one tall box, a small sphere light near the ceiling."""
+    one tall box, a small sphere light near the ceiling.  ``device`` None
+    is the CUDA card."""
+    device = resolve_device(device)
     room = make_box((-1, -1, -1), (1, 1, 1), mat_id=0, inward=True,
                     skip_faces=("front",))
     rv, rf, rm = room

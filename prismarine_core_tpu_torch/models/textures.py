@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from prismarine_core_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class TextureStack:
@@ -23,8 +25,10 @@ class TextureStack:
     stub: bool = False
 
     @staticmethod
-    def empty(resolution: int = 64, device="cpu") -> "TextureStack":
-        """Stack with a single white texture at id 0."""
+    def empty(resolution: int = 64, device=None) -> "TextureStack":
+        """Stack with a single white texture at id 0 (``device`` None is
+        the CUDA card)."""
+        device = resolve_device(device)
         return TextureStack(
             data=torch.ones((1, resolution, resolution, 4),
                             dtype=torch.float32, device=device),
@@ -39,14 +43,16 @@ class Environment:
     scale: torch.Tensor  # f32[3]
 
     @staticmethod
-    def constant(color=(0.0, 0.0, 0.0), device="cpu") -> "Environment":
+    def constant(color=(0.0, 0.0, 0.0), device=None) -> "Environment":
+        device = resolve_device(device)
         return Environment(
             image=torch.ones((1, 1, 3), dtype=torch.float32, device=device),
             scale=torch.as_tensor(np.asarray(color, np.float32),
                                   device=device))
 
     @staticmethod
-    def from_image(img, scale=(1.0, 1.0, 1.0), device="cpu") -> "Environment":
+    def from_image(img, scale=(1.0, 1.0, 1.0), device=None) -> "Environment":
+        device = resolve_device(device)
         return Environment(
             image=torch.as_tensor(
                 np.ascontiguousarray(np.asarray(img, np.float32)[..., :3]),

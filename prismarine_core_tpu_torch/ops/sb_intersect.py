@@ -1,21 +1,33 @@
-"""The fused pair intersector: wrapper, layout constants, plain version.
+"""The fused pair intersector in its three forms: wrappers, layouts, plain
+versions.
 
-``sb_intersect`` (CUDA: ``csrc/sb_intersect.cu``, replacing
-``prismarine_core_tpu/ops/pallas_intersect.py:_sb_kernel``, form "mt"):
-for each (tile, superblock) pair of a tile-major pair list and each set
-bit k of the pair's 8-bit mask, a 128-ray x 128-triangle Moller-Trumbore
-of the tile's rays against sub-block k's SoA planes.  A hit needs
-``|det| >= 1e-10``, ``u, v >= 0``, ``u + v <= 1``, ``t > PZERO`` and the
-slot's valid row.  Each ray keeps its closest (t, slot),
+Every form computes the same function of a tile-major pair list: for each
+(tile, superblock) pair and each set bit k of the pair's 8-bit mask, a
+128-ray x 128-triangle Moller-Trumbore of the tile's rays against
+sub-block k.  A hit needs ``|det| >= 1e-10``, ``u, v >= 0``,
+``u + v <= 1`` and ``t > PZERO`` (and, in the elementwise forms, the
+slot's valid row).  Each ray keeps its closest (t, slot),
 slot = sb*1024 + k*128 + lane, starting from ``prior`` or from
 (t_cap, -1); only a t strictly below the running best replaces it, so a
 hit at exactly t_cap is rejected.
 
+* ``sb_intersect`` (form "mt"; CUDA ``csrc/sb_intersect.cu``, replacing
+  ``prismarine_core_tpu/ops/pallas_intersect.py:_sb_kernel``): the
+  elementwise Moller-Trumbore on the SoA planes.
+* ``sb_intersect_mt2`` (form "mt2"; the same CUDA source, replacing
+  ``_sb_kernel_mt2``): two sub-blocks per region; equal to "mt" bit for
+  bit, so its plain version is ``sb_intersect_plain``.
+* ``sb_intersect_mxu`` (form "mxu"; CUDA ``csrc/sb_intersect_mxu.cu``,
+  replacing ``_sb_kernel_mxu``): det and the u, v, t numerators as linear
+  forms of the ray row ``[o, d, 1, c]`` (c = (o - center) x d) against
+  the coefficient planes of ``mxu_planes_from_planes``; plain version
+  ``sb_intersect_mxu_plain``.
+
 Tie rule: among equal t, the earliest (pair, k, lane) in list order wins.
-The CUDA kernel gets it from its sequential strict ``<`` over a tile's
-pairs; the plain version from a first-occurrence argmin over (k, lane)
-per pair, then the earliest pair holding the minimum.  (The JAX kernel
-breaks ties by grid step, then lane, then (pair, k); that differs only
+The CUDA kernels get it from their sequential strict ``<`` over a tile's
+pairs; the plain versions from a first-occurrence argmin over (k, lane)
+per pair, then the earliest pair holding the minimum.  (The JAX kernels
+break ties by grid step, then lane, then (pair, k); that differs only
 where two triangles give bit-equal t, such as on shared edges.)
 
 The result is two tensors over all (nt+1)*128 rows: t f32 and slot i32
@@ -28,6 +40,7 @@ import torch
 
 from prismarine_core_tpu_torch import _build
 from prismarine_core_tpu_torch._build import check_tensor
+from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
 
 TILE = 128       # rays per tile
@@ -35,18 +48,78 @@ BLOCK = 128      # triangle slots per sub-block
 SB = 8           # sub-blocks per superblock
 RAY_COLS = 16
 PLANE_ROWS = 16
-# ray component columns (7 and 11-15 are unused by these kernels)
-(RC_OX, RC_OY, RC_OZ, RC_DX, RC_DY, RC_DZ, RC_TCAP) = range(7)
-RC_IVX, RC_IVY, RC_IVZ = 8, 9, 10
+# ray component columns (15 is unused); RC_ONE (constant 1) and
+# RC_CX..RC_CZ (c = (o - center) x d) feed only the "mxu" form
+(RC_OX, RC_OY, RC_OZ, RC_DX, RC_DY, RC_DZ, RC_TCAP, RC_ONE,
+ RC_IVX, RC_IVY, RC_IVZ, RC_CX, RC_CY, RC_CZ) = range(14)
 # triangle plane rows
 (TC_V0X, TC_V0Y, TC_V0Z, TC_E1X, TC_E1Y, TC_E1Z,
  TC_E2X, TC_E2Y, TC_E2Z, TC_VALID) = range(10)
+#: quantities of the "mxu" coefficient planes, per sub-block lane groups
+#: [det | u_num | v_num | t_num] of BLOCK lanes each
+MXU_Q = 4
+#: the (ray column, quantity) coefficient rows that are not zero by
+#: construction, in the order both "mxu" versions sum them
+MXU_TERMS = (
+    ((RC_DX, 0), (RC_DY, 0), (RC_DZ, 0)),                        # det
+    ((RC_DX, 1), (RC_DY, 1), (RC_DZ, 1),
+     (RC_CX, 1), (RC_CY, 1), (RC_CZ, 1)),                        # u_num
+    ((RC_DX, 2), (RC_DY, 2), (RC_DZ, 2),
+     (RC_CX, 2), (RC_CY, 2), (RC_CZ, 2)),                        # v_num
+    ((RC_OX, 3), (RC_OY, 3), (RC_OZ, 3), (RC_ONE, 3)),           # t_num
+)
 _DET_EPS = 1e-10
 
 
 def as_count(n, device):
     """A count (int or 1-element tensor) as a 0-d tensor on ``device``."""
     return torch.as_tensor(n, device=device).reshape(())
+
+
+def mxu_planes_from_planes(planes, center):
+    """Determinant-form coefficient planes of the "mxu" form (the
+    counterpart of ``pallas_intersect.py:mxu_planes_from_planes``, plain
+    torch there and here).
+
+    Moller-Trumbore's four quantities are linear in the ray row
+    ``[o, d, 1, c]``, c = (o - center) x d, v~0 = v0 - center,
+    n = e1 x e2::
+
+      det   = d.(e2 x e1)
+      u_num = c.e2 + d.(v~0 x e2)
+      v_num = -c.e1 + d.(e1 x v~0)
+      t_num = o.n - v0.n
+
+    ``planes`` f32[nsb+1, 16, SB*BLOCK] -> f32[nsb+1, 16, SB*MXU_Q*BLOCK];
+    for sub-block k, lanes [512k, 512k+512) hold the groups
+    [det | u_num | v_num | t_num] of its BLOCK slots.  Invalid and
+    sentinel slots have all-zero columns (det = 0 rejects them)."""
+    nsbp, _, s = planes.shape
+
+    def vec(r0):
+        return planes[:, r0:r0 + 3].transpose(1, 2)          # [nsbp, S, 3]
+
+    v0, e1, e2 = vec(TC_V0X), vec(TC_E1X), vec(TC_E2X)
+    valid = (planes[:, TC_VALID] > 0.5)[..., None]          # [nsbp, S, 1]
+    n = pm.cross(e1, e2)
+    vt = v0 - center
+    coef = torch.zeros((nsbp, PLANE_ROWS, MXU_Q, s), dtype=torch.float32,
+                       device=planes.device)
+
+    def put(row, q, val):                                    # [nsbp, S, k]
+        val = torch.where(valid, val, 0.0)
+        coef[:, row:row + val.shape[-1], q] = val.transpose(1, 2)
+
+    put(RC_DX, 0, pm.cross(e2, e1))
+    put(RC_CX, 1, e2)
+    put(RC_DX, 1, pm.cross(vt, e2))
+    put(RC_CX, 2, -e1)
+    put(RC_DX, 2, pm.cross(e1, vt))
+    put(RC_OX, 3, n)
+    put(RC_ONE, 3, -pm.dot(v0, n, keepdim=True))
+    coef = coef.reshape(nsbp, PLANE_ROWS, MXU_Q, s // BLOCK, BLOCK)
+    return coef.transpose(2, 3).reshape(
+        nsbp, PLANE_ROWS, (s // BLOCK) * MXU_Q * BLOCK).contiguous()
 
 
 def _init(rays, prior):
@@ -58,11 +131,68 @@ def _init(rays, prior):
     return t0, s0
 
 
-def sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
-                       prior=None, chunk: int = 32):
-    """Plain PyTorch pair intersector -> (t f32[rows], slot i32[rows]).
-    ``chunk`` pairs at a time bound the [chunk, 128, 1024]
-    intermediates."""
+def _mt_grid(r, pl):
+    """Elementwise Moller-Trumbore: ray rows r [C, 128, 16] against
+    planes pl [C, 16, 1024] -> t [C, 128, 1024] (INF_DIST on a miss)."""
+    def rc(c):
+        return r[:, :, c, None]                            # [C, 128, 1]
+
+    def tr(c):
+        return pl[:, None, c, :]                           # [C, 1, 1024]
+
+    rox, roy, roz = rc(RC_OX), rc(RC_OY), rc(RC_OZ)
+    rdx, rdy, rdz = rc(RC_DX), rc(RC_DY), rc(RC_DZ)
+    e1x, e1y, e1z = tr(TC_E1X), tr(TC_E1Y), tr(TC_E1Z)
+    e2x, e2y, e2z = tr(TC_E2X), tr(TC_E2Y), tr(TC_E2Z)
+    px = rdy * e2z - rdz * e2y
+    py = rdz * e2x - rdx * e2z
+    pz = rdx * e2y - rdy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv = 1.0 / torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
+    sx = rox - tr(TC_V0X)
+    sy = roy - tr(TC_V0Y)
+    sz = roz - tr(TC_V0Z)
+    uu = (sx * px + sy * py + sz * pz) * inv
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    vv = (rdx * qx + rdy * qy + rdz * qz) * inv
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv
+    ok = ((torch.abs(det) >= _DET_EPS)
+          & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt > PZERO) & (tr(TC_VALID) > 0.5))
+    return torch.where(ok, tt, INF_DIST)
+
+
+def _mxu_grid(r, pl):
+    """Determinant form: ray rows r [C, 128, 16] against coefficient
+    planes pl [C, 16, 4096] -> t [C, 128, 1024] (INF_DIST on a miss).
+    Each quantity sums the MXU_TERMS products left to right, written out
+    elementwise (no matmul, so no TF32 and a fixed order)."""
+    c = pl.shape[0]
+    pl = pl.reshape(c, PLANE_ROWS, SB, MXU_Q, BLOCK)
+
+    def quantity(terms):
+        acc = None
+        for col, q in terms:
+            term = (r[:, :, col, None]
+                    * pl[:, None, col, :, q, :].reshape(c, 1, SB * BLOCK))
+            acc = term if acc is None else acc + term
+        return acc
+
+    det, un, vn, tn = (quantity(t) for t in MXU_TERMS)
+    inv = 1.0 / torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
+    uu = un * inv
+    vv = vn * inv
+    tt = tn * inv
+    ok = ((torch.abs(det) >= _DET_EPS)
+          & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > PZERO))
+    return torch.where(ok, tt, INF_DIST)
+
+
+def _plain(grid, pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+           prior, chunk):
+    """The plain pair intersector around a per-chunk t ``grid``."""
     dev = rays.device
     n_rows = rays.shape[0]
     n_pairs = pair_tile.shape[0]
@@ -75,37 +205,7 @@ def sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
     pair_slot = torch.empty((n_pairs, TILE), dtype=torch.int64, device=dev)
     for s in range(0, n_pairs, chunk):
         psb = pair_sb[s:s + chunk].long()
-        r = tiles[pair_tile[s:s + chunk].long()]          # [C, 128, 16]
-        pl = planes[psb]                                   # [C, 16, 1024]
-
-        def rc(c):
-            return r[:, :, c, None]                        # [C, 128, 1]
-
-        def tr(c):
-            return pl[:, None, c, :]                       # [C, 1, 1024]
-
-        rox, roy, roz = rc(RC_OX), rc(RC_OY), rc(RC_OZ)
-        rdx, rdy, rdz = rc(RC_DX), rc(RC_DY), rc(RC_DZ)
-        e1x, e1y, e1z = tr(TC_E1X), tr(TC_E1Y), tr(TC_E1Z)
-        e2x, e2y, e2z = tr(TC_E2X), tr(TC_E2Y), tr(TC_E2Z)
-        px = rdy * e2z - rdz * e2y
-        py = rdz * e2x - rdx * e2z
-        pz = rdx * e2y - rdy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        inv = 1.0 / torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
-        sx = rox - tr(TC_V0X)
-        sy = roy - tr(TC_V0Y)
-        sz = roz - tr(TC_V0Z)
-        uu = (sx * px + sy * py + sz * pz) * inv
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        vv = (rdx * qx + rdy * qy + rdz * qz) * inv
-        tt = (e2x * qx + e2y * qy + e2z * qz) * inv
-        ok = ((torch.abs(det) >= _DET_EPS)
-              & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-              & (tt > PZERO) & (tr(TC_VALID) > 0.5))
-        tt = torch.where(ok, tt, INF_DIST)
+        tt = grid(tiles[pair_tile[s:s + chunk].long()], planes[psb])
         # masked-off sub-blocks take no part at all (+inf, above INF_DIST)
         live = ((pair_mask[s:s + chunk, None] >> sub_of_lane) & 1) == 1
         tt = torch.where(live[:, None, :], tt, float("inf"))
@@ -133,22 +233,33 @@ def sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
             torch.where(better, win_slot.to(torch.int32), s0))
 
 
-def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
-                 prior=None):
-    """Closest (t, slot) per ray row after executing a tile-major pair
-    list.  ``pair_*`` i32[L], ``n_real`` i32 scalar tensor (pairs >= it are
-    ignored), ``rays`` f32[(nt+1)*128, 16], ``planes``
-    f32[nsb+1, 16, 1024], ``prior`` an optional (t, slot) of an earlier
-    round.  Returns (t f32[(nt+1)*128], slot i32[(nt+1)*128])."""
-    if rays.device.type == "cpu":
-        return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
-                                  rays, planes, prior)
+def sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                       prior=None, chunk: int = 32):
+    """Plain PyTorch pair intersector, forms "mt" and "mt2" -> (t
+    f32[rows], slot i32[rows]).  ``chunk`` pairs at a time bound the
+    [chunk, 128, 1024] intermediates."""
+    return _plain(_mt_grid, pair_tile, pair_sb, pair_mask, n_real, rays,
+                  planes, prior, chunk)
+
+
+def sb_intersect_mxu_plain(pair_tile, pair_sb, pair_mask, n_real, rays,
+                           planes, prior=None, chunk: int = 32):
+    """Plain PyTorch pair intersector, form "mxu": ``planes`` are the
+    coefficient planes f32[nsb+1, 16, 4096] (``mxu_planes_from_planes``)."""
+    return _plain(_mxu_grid, pair_tile, pair_sb, pair_mask, n_real, rays,
+                  planes, prior, chunk)
+
+
+def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
+            planes, prior):
+    """Check the arguments of one pair-intersector kernel and launch it
+    through the C entry point ``entry``."""
     dev = rays.device
     n_rows = rays.shape[0]
     n_pairs = pair_tile.shape[0]
     check_tensor(rays, torch.float32, (n_rows, RAY_COLS), "rays")
     check_tensor(planes, torch.float32,
-                 (planes.shape[0], PLANE_ROWS, SB * BLOCK), "planes", dev)
+                 (planes.shape[0], PLANE_ROWS, plane_w), "planes", dev)
     for name, t in (("pair_tile", pair_tile), ("pair_sb", pair_sb),
                     ("pair_mask", pair_mask)):
         check_tensor(t, torch.int32, (n_pairs,), name, dev)
@@ -165,16 +276,60 @@ def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
         out_int32=True)
     out_t = torch.empty((n_rows,), dtype=torch.float32, device=dev)
     out_slot = torch.empty((n_rows,), dtype=torch.int32, device=dev)
-    code = _build.library().sb_intersect_launch(
+    code = getattr(_build.library(), entry)(
         tile_start.data_ptr(), pair_sb.data_ptr(), pair_mask.data_ptr(),
         n_real.data_ptr(), rays.data_ptr(), planes.data_ptr(),
         prior[0].data_ptr() if prior is not None else None,
         prior[1].data_ptr() if prior is not None else None,
         out_t.data_ptr(), out_slot.data_ptr(), n_tiles,
         _build.stream_ptr(dev))
-    _build.check(code, "sb_intersect")
-    sb_intersect.launches += 1
+    _build.check(code, entry)
     return out_t, out_slot
 
 
+def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                 prior=None):
+    """Form "mt": closest (t, slot) per ray row after executing a
+    tile-major pair list.  ``pair_*`` i32[L], ``n_real`` i32 scalar tensor
+    (pairs >= it are ignored), ``rays`` f32[(nt+1)*128, 16], ``planes``
+    f32[nsb+1, 16, 1024], ``prior`` an optional (t, slot) of an earlier
+    round.  Returns (t f32[(nt+1)*128], slot i32[(nt+1)*128])."""
+    if rays.device.type == "cpu":
+        return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
+                                  rays, planes, prior)
+    out = _launch("sb_intersect_launch", SB * BLOCK, pair_tile, pair_sb,
+                  pair_mask, n_real, rays, planes, prior)
+    sb_intersect.launches += 1
+    return out
+
+
+def sb_intersect_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                     prior=None):
+    """Form "mt2": the arguments and result of ``sb_intersect`` bit for
+    bit, computed two sub-blocks per region."""
+    if rays.device.type == "cpu":
+        return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
+                                  rays, planes, prior)
+    out = _launch("sb_intersect_mt2_launch", SB * BLOCK, pair_tile, pair_sb,
+                  pair_mask, n_real, rays, planes, prior)
+    sb_intersect_mt2.launches += 1
+    return out
+
+
+def sb_intersect_mxu(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                     prior=None):
+    """Form "mxu": as ``sb_intersect``, with ``planes`` the coefficient
+    planes f32[nsb+1, 16, 4096] of ``mxu_planes_from_planes`` and the ray
+    matrix's RC_ONE and c columns filled."""
+    if rays.device.type == "cpu":
+        return sb_intersect_mxu_plain(pair_tile, pair_sb, pair_mask, n_real,
+                                      rays, planes, prior)
+    out = _launch("sb_intersect_mxu_launch", SB * MXU_Q * BLOCK, pair_tile,
+                  pair_sb, pair_mask, n_real, rays, planes, prior)
+    sb_intersect_mxu.launches += 1
+    return out
+
+
 sb_intersect.launches = 0
+sb_intersect_mt2.launches = 0
+sb_intersect_mxu.launches = 0

@@ -99,8 +99,9 @@ def _interpolate_surface(scene, hit: Hit):
     vv = hit.v[:, None]
     ns = pm.normalize(w * soup.n0[tri] + uu * soup.n1[tri]
                       + vv * soup.n2[tri])
-    ng = pm.normalize(pm.cross(soup.v1[tri] - soup.v0[tri],
-                               soup.v2[tri] - soup.v0[tri]))
+    v0 = pm.take_rows(soup.v0, tri)
+    ng = pm.normalize(pm.cross(pm.take_rows(soup.v1, tri) - v0,
+                               pm.take_rows(soup.v2, tri) - v0))
     # geometric normal where the shading normal is degenerate
     ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
     mat = scene.materials.lookup(soup.mat_id[tri].long())
@@ -130,7 +131,7 @@ def _nee_contribution(scene, cfg: RenderConfig, p, n, ns_raw, diffuse_beta,
                      0, n_lights - 1).long()
     center = scene.lights.center[li]
     radius = scene.lights.radius[li]
-    lcolor = scene.lights.color[li] * float(n_lights)
+    lcolor = pm.take_rows(scene.lights.color, li) * float(n_lights)
 
     sphere_pt = center + radius[:, None] * smp.uniform_sphere(
         u[:, smp.S_LIGHT1], u[:, smp.S_LIGHT2])

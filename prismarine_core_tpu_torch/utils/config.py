@@ -19,6 +19,8 @@ INF_DIST = 10000.0      # "infinity" hit distance
 #: ops/sampling.py)
 SAMPLES_PER_BOUNCE = 11
 SAMPLES_PER_CAMERA_RAY = 4
+#: the pair intersector's forms (ops/sb_intersect.py)
+KERNEL_FORMS = ("mt", "mt2", "mxu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +66,9 @@ class RenderConfig:
     #: pair-list alignment of the JAX two-level cull; the port's kernels
     #: take unaligned lists, so this only exists for config parity
     cull_pps: int = 0
+    #: pair-intersector form: "mt" (elementwise), "mt2" (two sub-blocks
+    #: per region, the same result bit for bit) or "mxu" (determinant
+    #: form on coefficient planes)
     kernel_form: str = "mt"
     anyhit_cull_impl: str = ""
     primary_identity: bool = False
@@ -142,9 +147,9 @@ def check_query_knobs(cull_impl="pallas2", sort_mode="full",
                      f"{anyhit_cull_impl!r} (only 'pallas2')", _KNOBS)
     if sort_mode != "full":
         _unsupported(f"sort_mode={sort_mode!r}", _KNOBS)
-    if kernel_form != "mt":
-        _unsupported(f"kernel_form={kernel_form!r}",
-                     "ROADMAP queue 2, '_sb_kernel_mt2' / '_sb_kernel_mxu'")
+    if kernel_form not in KERNEL_FORMS:
+        raise ValueError(f"kernel_form={kernel_form!r} is none of "
+                         f"{KERNEL_FORMS}")
     if near_frac != 0.0:
         _unsupported("near_frac", _KNOBS)
     for s in strategies:

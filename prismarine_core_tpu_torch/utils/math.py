@@ -74,3 +74,12 @@ def safe_rcp(x, eps: float = 1e-12):
     """Reciprocal with sign-preserving clamp away from zero."""
     return 1.0 / torch.where(torch.abs(x) < eps,
                              torch.where(x < 0, -eps, eps), x)
+
+
+def take_rows(table, idx):
+    """``table[idx]`` for a 1-D int64 index.  The values are the same; the
+    backward scatter-adds with ``index_add_`` (atomics on the card)
+    instead of advanced indexing's sort-based accumulation, which on CUDA
+    walks each repeated index serially: a 6-row material table gathered
+    by 921,600 lanes took ~100 ms per backward there."""
+    return torch.index_select(table, 0, idx)

@@ -99,6 +99,130 @@ def test_kernels_equal_plain(cuda_device, case):
     assert all(torch.equal(a, b) for a, b in zip(out2, ref2))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kernel_forms_equal_plain(cuda_device, case):
+    """"mt2" equals "mt" and the plain version exactly; "mxu" equals its
+    plain version exactly on the coefficient planes (round 1 and a
+    prior-seeded second pass)."""
+    dev = cuda_device
+    _, bvh, ps = _scene(case["n_tris"], case["seed"], dev)
+    o, d, t_cap = _rays(case["r"], case["seed"] + 1, dev,
+                        case.get("live_frac", 1.0),
+                        case.get("t_far", INF_DIST))
+    rays, _, _ = pk._sorted_rays_matrix(bvh.lo[0], bvh.hi[0], o, d, t_cap)
+    nt = rays.shape[0] // TILE - 1
+    n_live = pk._live_tile_bound(rays[:nt * TILE, 6].reshape(nt, TILE))
+    tn = cull.block_cull(rays, cull.box_rows_from_blocks(ps.sb_lo, ps.sb_hi),
+                         n_live)
+    pt, psb, n_real = pk.compact_pairs(tn[:, :ps.n_superblocks] < INF_DIST)
+    pm = cull.pair_cull(pt, psb, n_real, rays,
+                        cull.sb_box_table(ps.block_lo, ps.block_hi))
+    coef = si.mxu_planes_from_planes(ps.planes, 0.5 * (bvh.lo[0] + bvh.hi[0]))
+    prior = None                      # the second pass starts from the first
+    for n in (n_real, (n_real // 2).to(torch.int32)):
+        mt = si.sb_intersect(pt, psb, pm, n, rays, ps.planes, prior=prior)
+        mt2 = si.sb_intersect_mt2(pt, psb, pm, n, rays, ps.planes, prior=prior)
+        ref = si.sb_intersect_plain(pt, psb, pm, n, rays, ps.planes,
+                                    prior=prior)
+        assert all(torch.equal(a, b) for a, b in zip(mt2, mt))
+        assert all(torch.equal(a, b) for a, b in zip(mt2, ref))
+        mxu = si.sb_intersect_mxu(pt, psb, pm, n, rays, coef, prior=prior)
+        ref = si.sb_intersect_mxu_plain(pt, psb, pm, n, rays, coef,
+                                        prior=prior)
+        assert all(torch.equal(a, b) for a, b in zip(mxu, ref))
+        assert bool((mxu[1] >= 0).any())
+        prior = mt
+    grad = rays.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="requires grad"):
+        si.sb_intersect_mxu(pt, psb, pm, n_real, grad, coef)
+
+
+@pytest.mark.gpu
+def test_backward_on_the_card(cuda_device, monkeypatch):
+    """One backward through a "mxu" frame on the card: finite, non-zero
+    gradients, the mxu kernel launched, and within 1e-3 of the largest
+    entry of the same gradients with the plain versions in the kernels'
+    place (the same hits; the card's scatter-adds sum in no fixed
+    order)."""
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.models.scene import make_cornell_scene
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        apply_params, init_params)
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig(width=32, height=32, spp=1, max_bounces=2,
+                       intersector="pallas", cull_impl="pallas2",
+                       anyhit_strategy="single", kernel_form="mxu")
+    rng = np.random.default_rng(5)
+    cam_s = rng.random((cfg.n_rays, 4), dtype=np.float32)
+    bounce_s = rng.random((2, cfg.n_rays, 11), dtype=np.float32)
+
+    dev = cuda_device
+    scene = make_cornell_scene(device=dev)
+    cam = Camera.look_at((0.0, 0.0, 3.4), (0.0, 0.0, 0.0), fov_y_deg=50.0,
+                         device=dev)
+
+    def grads():
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in init_params(scene).items()}
+        img = render_with_samples(apply_params(scene, leaves), cam, cfg,
+                                  torch.tensor(cam_s, device=dev),
+                                  torch.tensor(bounce_s, device=dev))
+        g = torch.autograd.grad(img.square().mean(), list(leaves.values()))
+        return dict(zip(leaves, g))
+
+    launches = si.sb_intersect_mxu.launches
+    g_kernels = grads()
+    assert si.sb_intersect_mxu.launches > launches
+    monkeypatch.setattr(pk, "block_cull", cull.block_cull_plain)
+    monkeypatch.setattr(pk, "pair_cull", cull.pair_cull_plain)
+    monkeypatch.setattr(pk, "sb_intersect_mxu", si.sb_intersect_mxu_plain)
+    g_plain = grads()
+    for k, a in g_kernels.items():
+        b = g_plain[k]
+        assert bool(torch.isfinite(a).all()) and bool((a != 0).any()), k
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-3, (k, err)
+
+
+@pytest.mark.gpu
+def test_entry_points_default_to_the_card(cuda_device):
+    """Every constructor given no device builds on the card."""
+    from prismarine_core_tpu_torch import interop
+    from prismarine_core_tpu_torch.models import procedural
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.models.lights import SphereLights
+    from prismarine_core_tpu_torch.models.materials import MaterialTable
+    from prismarine_core_tpu_torch.models.scene import make_cornell_scene
+    from prismarine_core_tpu_torch.models.textures import (
+        Environment, TextureStack)
+    cornell = make_cornell_scene()
+    built = {
+        "make_cornell_scene": cornell.triangles.v0,
+        "make_hall_scene": procedural.make_hall_scene(2000).packets.planes,
+        "make_sky_environment": procedural.make_sky_environment(16).image,
+        "Camera.look_at": Camera.look_at((0, 0, 1), (0, 0, 0)).eye,
+        "TriangleSoup.from_arrays": TriangleSoup.from_arrays(
+            np.eye(3, dtype=np.float32), np.array([[0, 1, 2]])).v0,
+        "MaterialTable.build": MaterialTable.build([{}]).diffuse,
+        "SphereLights.suns": SphereLights.suns().color,
+        "SphereLights.single": SphereLights.single((0, 0, 0), 1.0,
+                                                   (1, 1, 1)).color,
+        "TextureStack.empty": TextureStack.empty(4).data,
+        "Environment.constant": Environment.constant().image,
+        "Environment.from_image": Environment.from_image(
+            np.ones((2, 4, 3), np.float32)).image,
+        "interop.scene_from_numpy": interop.scene_from_numpy(
+            interop.scene_to_numpy(cornell)).triangles.v0,
+        "interop.params_from_numpy": interop.params_from_numpy(
+            {"light_color": np.ones((1, 3), np.float32)})["light_color"],
+    }
+    for name, t in built.items():
+        assert t.device.type == "cuda", name
+
+
 @pytest.fixture
 def plain_versions(monkeypatch):
     """Run the packet query on the kernels' plain versions."""

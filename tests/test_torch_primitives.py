@@ -132,7 +132,8 @@ def test_brute_intersectors_match_jax(n_tris, r, block):
                             for _ in range(3)]).astype(np.float32)
     faces = np.stack([np.arange(n_tris) + k * n_tris for k in range(3)], 1)
     js_soup = JSoup.from_arrays(verts, faces, capacity=n_tris + 7)
-    ts_soup = TriangleSoup.from_arrays(verts, faces, capacity=n_tris + 7)
+    ts_soup = TriangleSoup.from_arrays(verts, faces, capacity=n_tris + 7,
+                                       device="cpu")
     o = rng.uniform(-8, 8, (r, 3)).astype(np.float32)
     aim = centers[rng.integers(0, n_tris, r)] + rng.normal(0, 0.2, (r, 3))
     d = (aim - o) / np.linalg.norm(aim - o, axis=-1, keepdims=True)

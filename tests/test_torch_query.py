@@ -57,7 +57,7 @@ SCENES = {
 def scenes(request):
     make_scene, make_rays = SCENES[request.param]
     js = make_scene()
-    ts = interop.scene_from_numpy(jax_scene_arrays(js))
+    ts = interop.scene_from_numpy(jax_scene_arrays(js), device="cpu")
     assert js.packets.n_superblocks > 2
     return js, ts, make_rays()
 
@@ -128,10 +128,13 @@ def test_order_reuse_and_unported_knobs(scenes):
                             strategy="single")
     assert torch.equal(a, b)
     for bad in (dict(strategy="rounds"), dict(cull_impl="pallas"),
-                dict(sort_mode="packed"), dict(kernel_form="mxu")):
+                dict(sort_mode="packed")):
         with pytest.raises(NotImplementedError):
             tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles,
                                          o, d, **bad)
+    with pytest.raises(ValueError):            # no such kernel form
+        tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles, o, d,
+                                     kernel_form="mt3")
     with pytest.raises(NotImplementedError):   # any-hit default: "rounds"
         tpk.occluded_pallas(ts.bvh, ts.packets, ts.triangles, o, d, t_max)
 

@@ -34,6 +34,8 @@ from prismarine_core_tpu_torch.render import integrator as tint  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import RenderConfig  # noqa: E402
 
 torch.set_num_threads(1)
+#: the port's constructors default to the card; these tests run on the CPU
+CPU = "cpu"
 
 #: the pallas knobs of bench.py's main configuration
 BENCH_KNOBS = dict(intersector="pallas", bvh_leaf_size=4,
@@ -63,7 +65,8 @@ def render_both(jscene, tscene, eye, target, fov, cfg_kw, samples):
         jscene, JCamera.look_at(eye=eye, target=target, fov_y_deg=fov),
         jcfg, cam_s, bounce_s, with_stats=True)
     timg, tst = tint.render_with_samples(
-        tscene, Camera.look_at(eye=eye, target=target, fov_y_deg=fov), tcfg,
+        tscene, Camera.look_at(eye=eye, target=target, fov_y_deg=fov,
+                               device=CPU), tcfg,
         torch.tensor(np.asarray(cam_s)), torch.tensor(np.asarray(bounce_s)),
         with_stats=True)
     return ((timg.numpy(), tst.numpy()),
@@ -84,8 +87,8 @@ HALL = dict(eye=(-10.0, 2.2, 0.0), target=(6.0, 1.6, 0.0), fov=60.0)
 def test_cornell_matches_jax(knobs):
     cfg_kw = dict(width=32, height=32, spp=1, max_bounces=3, **knobs)
     (img, st), (ref, rst) = render_both(
-        j_cornell(), make_cornell_scene(), **CORNELL, cfg_kw=cfg_kw,
-        samples=_independent)
+        j_cornell(), make_cornell_scene(device=CPU), **CORNELL,
+        cfg_kw=cfg_kw, samples=_independent)
     assert img.mean() > 1e-2
     assert_image_parity(img, ref, st, rst)
 
@@ -93,7 +96,7 @@ def test_cornell_matches_jax(knobs):
 @pytest.fixture(scope="module")
 def small_halls():
     return (jproc.make_hall_scene(target_tris=3000),
-            tproc.make_hall_scene(target_tris=3000))
+            tproc.make_hall_scene(target_tris=3000, device=CPU))
 
 
 @pytest.mark.parametrize("knobs", [dict(intersector="brute"), BENCH_KNOBS],
@@ -113,9 +116,9 @@ def test_brute_matches_numpy_oracle():
     cfg_kw = dict(width=24, height=24, spp=1, max_bounces=3,
                   intersector="brute")
     cam_s, bounce_s = _independent(JConfig(**cfg_kw))
-    scene = make_cornell_scene()
+    scene = make_cornell_scene(device=CPU)
     cam = Camera.look_at(eye=CORNELL["eye"], target=CORNELL["target"],
-                         fov_y_deg=CORNELL["fov"])
+                         fov_y_deg=CORNELL["fov"], device=CPU)
     img = tint.render_with_samples(
         scene, cam, RenderConfig(**cfg_kw), torch.tensor(np.asarray(cam_s)),
         torch.tensor(np.asarray(bounce_s))).numpy()
@@ -131,9 +134,9 @@ def test_brute_matches_numpy_oracle():
 def test_render_entry_point_and_unported_knobs():
     """``render`` draws its samples from a torch.Generator; knobs outside
     the slice raise NotImplementedError."""
-    scene = make_cornell_scene()
+    scene = make_cornell_scene(device=CPU)
     cam = Camera.look_at(eye=CORNELL["eye"], target=CORNELL["target"],
-                         fov_y_deg=CORNELL["fov"])
+                         fov_y_deg=CORNELL["fov"], device=CPU)
     cfg = RenderConfig(width=16, height=16, max_bounces=2,
                        coherent_bounce_sampling=True, **BENCH_KNOBS)
     a = tint.render(scene, cam, cfg, torch.Generator().manual_seed(1))
@@ -145,8 +148,11 @@ def test_render_entry_point_and_unported_knobs():
                 dict(camera_360=True), dict(texture_filter="bicubic"),
                 dict(reuse_bounce_order=True), dict(primary_identity=True),
                 dict(primary_tile_order=True), dict(sort_mode="group"),
-                dict(cull_impl="xla"), dict(kernel_form="mt2"),
+                dict(cull_impl="xla"),
                 dict(closest_strategy="rounds"), dict(intersector="bvh")):
         with pytest.raises(NotImplementedError):
             tint.render(scene, cam, cfg.replace(**bad),
                         torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError):            # no such kernel form
+        tint.render(scene, cam, cfg.replace(kernel_form="mt3"),
+                    torch.Generator().manual_seed(1))

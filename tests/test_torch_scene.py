@@ -30,6 +30,8 @@ from prismarine_core_tpu_torch.models.geometry import TriangleSoup  # noqa: E402
 from tests.test_bvh import _random_soup  # noqa: E402
 
 torch.set_num_threads(1)
+#: the port's constructors default to the card; these tests run on the CPU
+CPU = "cpu"
 
 GROUPS = ("triangles", "materials", "lights", "environment", "bvh",
           "packets")
@@ -72,14 +74,15 @@ def assert_dataclass_equal(port_obj, jax_obj, name):
 @pytest.fixture(scope="module")
 def halls():
     return (jproc.make_hall_scene(target_tris=3000),
-            tproc.make_hall_scene(target_tris=3000))
+            tproc.make_hall_scene(target_tris=3000, device=CPU))
 
 
 def test_hall_and_sky_arrays_equal(halls):
     jh, th = halls
     for g in ("triangles", "materials", "lights", "environment"):
         assert_dataclass_equal(getattr(th, g), getattr(jh, g), g)
-    assert_dataclass_equal(tproc.make_sky_environment(resolution=32),
+    assert_dataclass_equal(tproc.make_sky_environment(resolution=32,
+                                                      device=CPU),
                            jproc.make_sky_environment(resolution=32), "sky")
 
 
@@ -104,7 +107,7 @@ def test_build_bvh_matches_jax(n_tris, capacity, seed):
 def test_interop_round_trip(halls):
     jh, _ = halls
     arrays = jax_scene_arrays(jh)
-    scene = interop.scene_from_numpy(arrays)
+    scene = interop.scene_from_numpy(arrays, device=CPU)
     back = interop.scene_to_numpy(scene)
     assert set(back) == set(arrays)
     for k, v in arrays.items():
@@ -112,7 +115,48 @@ def test_interop_round_trip(halls):
     assert scene.textures.stub
     with pytest.raises(NotImplementedError):
         interop.scene_from_numpy({**arrays, "textures.quad": arrays[
-            "textures.data"]})
+            "textures.data"]}, device=CPU)
+
+
+def test_entry_points_need_a_card_by_default(monkeypatch):
+    """``device=None`` means the CUDA card: without one every constructor
+    raises, naming ``device="cpu"``, and never builds on the CPU by
+    itself."""
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.models.lights import SphereLights
+    from prismarine_core_tpu_torch.models.materials import MaterialTable
+    from prismarine_core_tpu_torch.models.scene import make_cornell_scene
+    from prismarine_core_tpu_torch.models.textures import (
+        Environment, TextureStack)
+    from prismarine_core_tpu_torch.utils.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cpu_arrays = interop.scene_to_numpy(make_cornell_scene(device=CPU))
+    calls = {
+        "make_cornell_scene": make_cornell_scene,
+        "make_hall_scene": lambda: tproc.make_hall_scene(2000),
+        "make_sky_environment": lambda: tproc.make_sky_environment(16),
+        "Camera.look_at": lambda: Camera.look_at((0, 0, 1), (0, 0, 0)),
+        "TriangleSoup.from_arrays": lambda: TriangleSoup.from_arrays(
+            np.eye(3, dtype=np.float32), np.array([[0, 1, 2]])),
+        "MaterialTable.build": lambda: MaterialTable.build([{}]),
+        "SphereLights.suns": SphereLights.suns,
+        "SphereLights.single": lambda: SphereLights.single(
+            (0, 0, 0), 1.0, (1, 1, 1)),
+        "TextureStack.empty": TextureStack.empty,
+        "Environment.constant": Environment.constant,
+        "Environment.from_image": lambda: Environment.from_image(
+            np.ones((2, 4, 3), np.float32)),
+        "interop.scene_from_numpy": lambda: interop.scene_from_numpy(
+            cpu_arrays),
+        "interop.params_from_numpy": lambda: interop.params_from_numpy(
+            {"light_color": np.ones((1, 3), np.float32)}),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
 
 
 def test_import_leaves_jax_out():
@@ -121,6 +165,7 @@ def test_import_leaves_jax_out():
             "import prismarine_core_tpu_torch.interop\n"
             "import prismarine_core_tpu_torch.models.procedural\n"
             "import prismarine_core_tpu_torch._build\n"
+            "import prismarine_core_tpu_torch.parallel.mesh\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('prismarine_core_tpu.')"
             " or m == 'prismarine_core_tpu' or m == 'triton']\n"

@@ -35,9 +35,10 @@ def test_bench_slice_matches_jax():
     jscene = jproc.make_hall_scene(target_tris=20000)
     jscene = dataclasses.replace(
         jscene, environment=jproc.make_sky_environment(resolution=128))
-    tscene = tproc.make_hall_scene(target_tris=20000)
+    tscene = tproc.make_hall_scene(target_tris=20000, device="cpu")
     tscene = dataclasses.replace(
-        tscene, environment=tproc.make_sky_environment(resolution=128))
+        tscene, environment=tproc.make_sky_environment(resolution=128,
+                                                       device="cpu"))
     assert int(tscene.triangles.num_valid()) == 27748
     assert tscene.packets.n_superblocks == 32
 
