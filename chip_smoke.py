@@ -17,10 +17,14 @@ Phases (any failure exits non-zero):
                 query): block cull, pair cull masks and the three pair
                 intersector forms' (t, slot) must be equal exactly, "mt2"
                 must also equal "mt" exactly, and "mxu" must meet
-                mxu_bounds against "mt"; kernel and plain times by CUDA
-                events after a warm-up, and each kernel's bound (the
+                mxu_bounds against "mt"; the live sub-blocks per ray tile
+                (mean, p99, max, empty tiles); kernel and plain times by
+                CUDA events after a warm-up, each kernel's bound (the
                 larger of its fp32 operations over 67 TFLOP/s and its
-                bytes over 3.35 TB/s);
+                bytes over 3.35 TB/s) and, in the log, each intersector's
+                issue floor without the walk's skip (its fp32 operations
+                at half that rate: under -fmad=false every add and
+                multiply is one instruction);
   4. frame    — render_with_samples(..., with_stats=True) at bench.py's
                 main configuration, with every kernel's launch counter
                 set to 0 before and read after (each must be > 0 and at
@@ -291,7 +295,13 @@ def phase_kernels(scene, cam, cfg, dev):
                                        tx[:r][live], slot[:r][live],
                                        slotx[:r][live])
         n_hit = int((slot[:nt * 128] >= 0).sum())
-        n_sub = int(sum(((pm >> k) & 1).sum() for k in range(8)))
+        work = si.tile_work(pt, pm, n_real, nt)
+        n_sub = int(work.sum())
+        ws = torch.sort(work)[0]
+        log(f"[kernels] {name}: live sub-blocks per ray tile: mean "
+            f"{float(work.double().mean()):.4f}, p99 "
+            f"{int(ws[int(0.99 * (nt - 1))])}, max {int(ws[-1])}, "
+            f"{int((work == 0).sum())} empty tiles of {nt}")
         log(f"[kernels] {name}: {r} rays, {nt} tiles, n_live "
             f"{int(n_live)}, {int(n_real)} round-1 pairs, {n_sub} live "
             f"sub-blocks, {n_hit} hits; kernels == plain exactly, mt2 == mt "
@@ -315,6 +325,15 @@ def phase_kernels(scene, cam, cfg, dev):
                                       + n_rows * 8),
         }
         bounds["sb_intersect_mt2"] = bounds["sb_intersect"]
+        # the -fmad=false issue floor of a walk with no skip: every fp32
+        # add and multiply of every test is its own instruction, at most
+        # one per lane and cycle (half the fp32 peak, which counts an FMA
+        # as two operations).  Log only: the walk's skip leaves out the
+        # second half of some tests, so it is no floor of the kernel.
+        floors = {k: n_sub * 128 * 128 * ops / (FP32_PER_S / 2) * 1e3
+                  for k, ops in (("sb_intersect", MT_OPS),
+                                 ("sb_intersect_mt2", MT_OPS),
+                                 ("sb_intersect_mxu", MXU_OPS))}
 
         times = {
             "block_cull": (cuda_ms(lambda: cull.block_cull(
@@ -345,10 +364,12 @@ def phase_kernels(scene, cam, cfg, dev):
                                      + times["sb_intersect_mt2"][2:])
         for k, (ms, pms, err) in times.items():
             times[k] = (ms, pms, err) + bounds[k]
+            floor = (f", no-skip issue floor {floors[k]:.4f} ms "
+                     f"({floors[k] / ms:.3f} of it)" if k in floors else "")
             log(f"[kernels] {name} {k}: kernel {ms:.4f} ms, plain "
                 f"{pms:.4f} ms ({pms / ms:.1f}x), bound {bounds[k][0]:.4f} "
-                f"ms by {bounds[k][1]} ({bounds[k][0] / ms:.3f} of it), "
-                f"max |kernel - plain| {err}")
+                f"ms by {bounds[k][1]} ({bounds[k][0] / ms:.3f} of it)"
+                f"{floor}, max |kernel - plain| {err}")
         rows[name] = times
     return rows
 

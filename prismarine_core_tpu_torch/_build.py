@@ -36,13 +36,15 @@ _SIGNATURES = {
     "block_cull_launch": (_P, _P, _P, _P, _I, _I, _P),
     # pair_tile, pair_sb, n_real, rays, sb_boxes, out, n_pairs, stream
     "pair_cull_launch": (_P, _P, _P, _P, _P, _P, _I, _P),
+    # tile_start, pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+    # prior_t, prior_slot, keys, csum, unit_pair, out_t, out_slot, n_rows,
+    # n_pairs, unit, stream
+    "sb_intersect_launch": (_P,) * 14 + (_I, _I, _I, _P),
     # tile_start, pair_sb, pair_mask, n_real, rays, planes, prior_t,
     # prior_slot, out_t, out_slot, n_tiles, stream
-    "sb_intersect_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _P),
+    "sb_intersect_mt2_launch": (_P,) * 10 + (_I, _P),
 }
-# the "mt2" and "mxu" pair intersectors take the same arguments
-_SIGNATURES["sb_intersect_mt2_launch"] = _SIGNATURES["sb_intersect_launch"]
+# the "mxu" walk takes the "mt" walk's arguments
 _SIGNATURES["sb_intersect_mxu_launch"] = _SIGNATURES["sb_intersect_launch"]
 
 _lib = None

@@ -11,22 +11,27 @@ slot = sb*1024 + k*128 + lane, starting from ``prior`` or from
 (t_cap, -1); only a t strictly below the running best replaces it, so a
 hit at exactly t_cap is rejected.
 
-* ``sb_intersect`` (form "mt"; CUDA ``csrc/sb_intersect.cu``, replacing
+* ``sb_intersect`` (form "mt"; CUDA ``csrc/sb_intersect.cu`` on the walk
+  of ``csrc/sb_walk.cuh``, replacing
   ``prismarine_core_tpu/ops/pallas_intersect.py:_sb_kernel``): the
   elementwise Moller-Trumbore on the SoA planes.
-* ``sb_intersect_mt2`` (form "mt2"; the same CUDA source, replacing
-  ``_sb_kernel_mt2``): two sub-blocks per region; equal to "mt" bit for
-  bit, so its plain version is ``sb_intersect_plain``.
-* ``sb_intersect_mxu`` (form "mxu"; CUDA ``csrc/sb_intersect_mxu.cu``,
-  replacing ``_sb_kernel_mxu``): det and the u, v, t numerators as linear
-  forms of the ray row ``[o, d, 1, c]`` (c = (o - center) x d) against
-  the coefficient planes of ``mxu_planes_from_planes``; plain version
-  ``sb_intersect_mxu_plain``.
+* ``sb_intersect_mt2`` (form "mt2"; ``csrc/sb_intersect.cu``, one block
+  per ray tile, replacing ``_sb_kernel_mt2``): two sub-blocks per region;
+  equal to "mt" bit for bit, so its plain version is
+  ``sb_intersect_plain``.
+* ``sb_intersect_mxu`` (form "mxu"; CUDA ``csrc/sb_intersect_mxu.cu`` on
+  the same walk, replacing ``_sb_kernel_mxu``): det and the u, v, t
+  numerators as linear forms of the ray row ``[o, d, 1, c]`` (c = (o -
+  center) x d) against the coefficient planes of
+  ``mxu_planes_from_planes``; plain version ``sb_intersect_mxu_plain``.
 
 Tie rule: among equal t, the earliest (pair, k, lane) in list order wins.
-The CUDA kernels get it from their sequential strict ``<`` over a tile's
+The "mt2" kernel gets it from its sequential strict ``<`` over a tile's
 pairs; the plain versions from a first-occurrence argmin over (k, lane)
-per pair, then the earliest pair holding the minimum.  (The JAX kernels
+per pair, then the earliest pair holding the minimum; the walk from
+64-bit keys (bits of t, then the position in the tile's run) folded with
+``atomicMin``.  ``work_units``, ``keys_init``, ``keys_decode`` and
+``sb_walk_emulation`` are that walk in plain torch.  (The JAX kernels
 break ties by grid step, then lane, then (pair, k); that differs only
 where two triangles give bit-equal t, such as on shared edges.)
 
@@ -122,6 +127,31 @@ def mxu_planes_from_planes(planes, center):
         nsbp, PLANE_ROWS, (s // BLOCK) * MXU_Q * BLOCK).contiguous()
 
 
+def live_counts(pair_mask, n_real):
+    """i32[L]: live sub-blocks of each pair (its mask's popcount; 0 at and
+    beyond ``n_real``)."""
+    dev = pair_mask.device
+    bits = (pair_mask[:, None] >> torch.arange(SB, device=dev)) & 1
+    real = torch.arange(pair_mask.shape[0], device=dev) < as_count(n_real,
+                                                                   dev)
+    return torch.where(real, bits.sum(1), 0).to(torch.int32)
+
+
+def tile_work(pair_tile, pair_mask, n_real, n_tiles):
+    """i64[n_tiles]: live sub-blocks in each ray tile's run of the list."""
+    return torch.zeros((n_tiles,), dtype=torch.int64,
+                       device=pair_mask.device).index_add_(
+        0, pair_tile.long(), live_counts(pair_mask, n_real).long())
+
+
+def tile_runs(pair_tile, n_rows):
+    """i32[n_tiles + 1]: the tile-major list's run starts; tile t's pairs
+    are [start[t], start[t+1])."""
+    return torch.searchsorted(
+        pair_tile, torch.arange(n_rows // TILE + 1, dtype=torch.int32,
+                                device=pair_tile.device), out_int32=True)
+
+
 def _init(rays, prior):
     if prior is not None:
         return prior
@@ -133,7 +163,7 @@ def _init(rays, prior):
 
 def _mt_grid(r, pl):
     """Elementwise Moller-Trumbore: ray rows r [C, 128, 16] against
-    planes pl [C, 16, 1024] -> t [C, 128, 1024] (INF_DIST on a miss)."""
+    planes pl [C, 16, n] -> t [C, 128, n] (INF_DIST on a miss)."""
     def rc(c):
         return r[:, :, c, None]                            # [C, 128, 1]
 
@@ -166,17 +196,18 @@ def _mt_grid(r, pl):
 
 def _mxu_grid(r, pl):
     """Determinant form: ray rows r [C, 128, 16] against coefficient
-    planes pl [C, 16, 4096] -> t [C, 128, 1024] (INF_DIST on a miss).
+    planes pl [C, 16, n*512] (n sub-blocks) -> t [C, 128, n*128]
+    (INF_DIST on a miss).
     Each quantity sums the MXU_TERMS products left to right, written out
     elementwise (no matmul, so no TF32 and a fixed order)."""
     c = pl.shape[0]
-    pl = pl.reshape(c, PLANE_ROWS, SB, MXU_Q, BLOCK)
+    pl = pl.reshape(c, PLANE_ROWS, -1, MXU_Q, BLOCK)
 
     def quantity(terms):
         acc = None
         for col, q in terms:
             term = (r[:, :, col, None]
-                    * pl[:, None, col, :, q, :].reshape(c, 1, SB * BLOCK))
+                    * pl[:, None, col, :, q, :].reshape(c, 1, -1))
             acc = term if acc is None else acc + term
         return acc
 
@@ -250,10 +281,97 @@ def sb_intersect_mxu_plain(pair_tile, pair_sb, pair_mask, n_real, rays,
                   planes, prior, chunk)
 
 
-def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
-            planes, prior):
-    """Check the arguments of one pair-intersector kernel and launch it
-    through the C entry point ``entry``."""
+#: live sub-blocks per work unit of the walk: the CUDA walk
+#: (csrc/sb_walk.cuh) takes it as an argument, its emulation below uses it
+WALK_UNIT = 8
+
+
+def work_units(pair_mask, n_real, unit: int = WALK_UNIT):
+    """The walk's work units in plain torch: (csum i32[L], unit_pair
+    i32[n_units]).  csum[p] counts the live sub-blocks of pairs 0..p (a
+    pair at or beyond ``n_real`` counts 0); unit u holds the live
+    sub-blocks [u*unit, (u+1)*unit) of the list, in list order, and starts
+    in pair unit_pair[u].  (The CUDA plan kernel computes the same two
+    arrays on the card.)"""
+    csum = torch.cumsum(live_counts(pair_mask, n_real), 0,
+                        dtype=torch.int32)
+    total = int(csum[-1]) if csum.numel() else 0
+    starts = torch.arange(0, total, unit, dtype=torch.int32,
+                          device=pair_mask.device)
+    return csum, torch.searchsorted(csum, starts, right=True,
+                                    out_int32=True)
+
+
+def keys_init(rays, prior=None):
+    """i64[rows]: each row's starting key, (bits of the prior t or t_cap)
+    << 32 with index 0 (an equal t never replaces it); a t <= 0 or NaN
+    maps to 0, below every tested t."""
+    t0, _ = _init(rays, prior)
+    bits = t0.contiguous().view(torch.int32).long()
+    return torch.where(t0 > 0, bits << 32, 0)
+
+
+def keys_decode(keys, rays, prior, tile_start, pair_sb):
+    """(t f32[rows], slot i32[rows]) of the folded keys: the prior where
+    the index is 0, else t from the high word and the slot of index - 1 =
+    (p - tile_start[tile]) * 1024 + k * 128 + lane."""
+    t0, s0 = _init(rays, prior)
+    if pair_sb.numel() == 0:
+        return t0.clone(), s0.clone()
+    low = keys & 0xFFFFFFFF
+    idx = (low - 1).clamp(min=0)
+    tile = torch.arange(keys.shape[0], device=keys.device) // TILE
+    p = (tile_start.long()[tile] + (idx >> 10)).clamp(
+        max=pair_sb.shape[0] - 1)
+    slot = pair_sb.long()[p] * (SB * BLOCK) + (idx & (SB * BLOCK - 1))
+    t = (keys >> 32).to(torch.int32).view(torch.float32)
+    won = low != 0
+    return torch.where(won, t, t0), torch.where(won, slot, s0).to(
+        torch.int32)
+
+
+def sb_walk_emulation(form, pair_tile, pair_sb, pair_mask, n_real, rays,
+                      planes, prior=None, unit: int = WALK_UNIT):
+    """The CUDA walk in plain torch: work units of ``unit`` live
+    sub-blocks in list order, each folding its tests' int64 keys into the
+    rows' keys with ``scatter_reduce("amin")``, then the decode.  ``form``
+    "mt" (planes f32[nsb+1, 16, 1024]) or "mxu" (coefficient planes
+    f32[nsb+1, 16, 4096]).  Equal to ``sb_intersect_plain`` /
+    ``sb_intersect_mxu_plain`` bit for bit, ties included."""
+    grid, width = ((_mt_grid, BLOCK) if form == "mt"
+                   else (_mxu_grid, MXU_Q * BLOCK))
+    dev = rays.device
+    tile_start = tile_runs(pair_tile, rays.shape[0])
+    keys = keys_init(rays, prior)
+    csum, unit_pair = work_units(pair_mask, n_real, unit)
+    real = torch.arange(pair_mask.shape[0], device=dev) < as_count(n_real,
+                                                                   dev)
+    live = (((pair_mask[:, None] >> torch.arange(SB, device=dev)) & 1) == 1)
+    items = torch.nonzero(live & real[:, None])     # (p, k) in list order
+    tiles = rays.reshape(-1, TILE, RAY_COLS)
+    lanes = torch.arange(BLOCK, device=dev)
+    for u in range(unit_pair.shape[0]):
+        p, k = items[u * unit:(u + 1) * unit].T
+        if int(p[0]) != int(unit_pair[u]):
+            raise AssertionError(f"unit {u} starts in pair {int(p[0])}, "
+                                 f"not {int(unit_pair[u])}")
+        n = p.shape[0]
+        tile = pair_tile[p].long()
+        pl = planes[pair_sb[p].long()].reshape(n, PLANE_ROWS, SB, width)
+        tt = grid(tiles[tile], pl[torch.arange(n, device=dev), :, k])
+        idx = ((p - tile_start[tile].long()) * (SB * BLOCK)
+               + k * BLOCK)[:, None] + lanes + 1             # [n, lanes]
+        key = (tt.contiguous().view(torch.int32).long() << 32) | idx[:, None]
+        rows = (tile[:, None] * TILE + torch.arange(TILE, device=dev))
+        keys.scatter_reduce_(0, rows[:, :, None].expand(-1, -1, BLOCK)
+                             .reshape(-1), key.reshape(-1), "amin")
+    return keys_decode(keys, rays, prior, tile_start, pair_sb)
+
+
+def _check(plane_w, pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+           prior):
+    """Check the arguments of one pair-intersector kernel; returns the
+    list's run starts (``tile_runs``)."""
     dev = rays.device
     n_rows = rays.shape[0]
     n_pairs = pair_tile.shape[0]
@@ -269,21 +387,55 @@ def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
     if prior is not None:
         check_tensor(prior[0], torch.float32, (n_rows,), "prior t", dev)
         check_tensor(prior[1], torch.int32, (n_rows,), "prior slot", dev)
-    n_tiles = n_rows // TILE
-    # each tile's run of the tile-major list: [start[t], start[t+1])
-    tile_start = torch.searchsorted(
-        pair_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
+    return tile_runs(pair_tile, n_rows)
+
+
+def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
+            planes, prior):
+    """Launch one pair-intersector kernel on the walk (C entry point
+    ``entry``: plan, key init, walk, decode) after checking its
+    arguments."""
+    tile_start = _check(plane_w, pair_tile, pair_sb, pair_mask, n_real,
+                        rays, planes, prior)
+    lib = _build.library()
+    dev = rays.device
+    n_rows, n_pairs = rays.shape[0], pair_tile.shape[0]
+    keys = torch.empty((n_rows + 1,), dtype=torch.int64, device=dev)
+    csum = torch.empty((max(n_pairs, 1),), dtype=torch.int32, device=dev)
+    unit_pair = torch.empty((max(-(-n_pairs * SB // WALK_UNIT), 1),),
+                            dtype=torch.int32, device=dev)
     out_t = torch.empty((n_rows,), dtype=torch.float32, device=dev)
     out_slot = torch.empty((n_rows,), dtype=torch.int32, device=dev)
-    code = getattr(_build.library(), entry)(
+    code = getattr(lib, entry)(
+        tile_start.data_ptr(), pair_tile.data_ptr(), pair_sb.data_ptr(),
+        pair_mask.data_ptr(), n_real.data_ptr(), rays.data_ptr(),
+        planes.data_ptr(),
+        prior[0].data_ptr() if prior is not None else None,
+        prior[1].data_ptr() if prior is not None else None,
+        keys.data_ptr(), csum.data_ptr(), unit_pair.data_ptr(),
+        out_t.data_ptr(), out_slot.data_ptr(), n_rows, n_pairs, WALK_UNIT,
+        _build.stream_ptr(dev))
+    _build.check(code, entry)
+    return out_t, out_slot
+
+
+def _launch_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                prior):
+    """Launch the "mt2" kernel (one block per ray tile)."""
+    tile_start = _check(SB * BLOCK, pair_tile, pair_sb, pair_mask, n_real,
+                        rays, planes, prior)
+    dev = rays.device
+    n_rows = rays.shape[0]
+    out_t = torch.empty((n_rows,), dtype=torch.float32, device=dev)
+    out_slot = torch.empty((n_rows,), dtype=torch.int32, device=dev)
+    code = _build.library().sb_intersect_mt2_launch(
         tile_start.data_ptr(), pair_sb.data_ptr(), pair_mask.data_ptr(),
         n_real.data_ptr(), rays.data_ptr(), planes.data_ptr(),
         prior[0].data_ptr() if prior is not None else None,
         prior[1].data_ptr() if prior is not None else None,
-        out_t.data_ptr(), out_slot.data_ptr(), n_tiles,
+        out_t.data_ptr(), out_slot.data_ptr(), n_rows // TILE,
         _build.stream_ptr(dev))
-    _build.check(code, entry)
+    _build.check(code, "sb_intersect_mt2_launch")
     return out_t, out_slot
 
 
@@ -310,8 +462,8 @@ def sb_intersect_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
     if rays.device.type == "cpu":
         return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
                                   rays, planes, prior)
-    out = _launch("sb_intersect_mt2_launch", SB * BLOCK, pair_tile, pair_sb,
-                  pair_mask, n_real, rays, planes, prior)
+    out = _launch_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                      prior)
     sb_intersect_mt2.launches += 1
     return out
 
