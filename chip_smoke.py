@@ -21,17 +21,25 @@ Phases (any failure exits non-zero):
                 (mean, p99, max, empty tiles); kernel and plain times by
                 CUDA events after a warm-up, each kernel's bound (the
                 larger of its fp32 operations over 67 TFLOP/s and its
-                bytes over 3.35 TB/s) and, in the log, each intersector's
-                issue floor without the walk's skip (its fp32 operations
-                at half that rate: under -fmad=false every add and
-                multiply is one instruction);
+                bytes over 3.35 TB/s; the cull kernels' operations are
+                what their tile-level reject leaves, cull_work, with
+                the survivor shares and the dense bound in the log) and,
+                in the log, each intersector's issue floor without the
+                walk's skip (its fp32 operations at half that rate: under
+                -fmad=false every add and multiply is one instruction);
+                then both cull kernels against their plain versions on
+                every input of one bounce step at bounce 1 (the closest
+                query's rounds 1 and 2, the shadow query), recorded while
+                the step runs;
   4. frame    — render_with_samples(..., with_stats=True) at bench.py's
                 main configuration, with every kernel's launch counter
                 set to 0 before and read after (each must be > 0 and at
                 most 12 = 2 per closest query + 1 per shadow query over
                 4 bounces); then 3 timed frames, one sync each: ms/frame,
                 live rays, Mrays/s, host syncs per frame, peak memory;
-                and one frame under torch.profiler (device time by group);
+                and one frame under torch.profiler (device time by group,
+                the cull kernels' time and the device's idle gap before
+                each of them);
   5. parity   — the same frame with the plain versions in the kernels'
                 place: the image must meet the CPU image test's bound;
   6. frame mt2 — the same frame under kernel_form="mt2": bit-identical to
@@ -85,6 +93,12 @@ FP32_PER_S, BYTES_PER_S = 67e12, 3.35e12
 #: per ray-triangle test of the elementwise and determinant forms
 #: (adds, subs, muls, the divide; compares and selects not counted)
 SLAB_OPS, MT_OPS, MXU_OPS = 23, 46, 39
+#: fp32 operations of the cull kernels' tile-level reject
+#: (csrc/cull.cu), counted as SLAB_OPS is: per ray of a tile's reduction
+#: (bounds_add: min of o, -o, iv, -iv per axis and of -t_cap), and per
+#: (tile, box) test (tile_rejects: per axis 2 subs, 4 muls, 1 min, 1 max;
+#: 2 max and 2 min across the axes)
+BOUND_OPS, REJECT_OPS = 13, 28
 TRAIN_STEPS = 8
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
 #: the 64-triangle cornell box
@@ -201,6 +215,45 @@ def mxu_bounds(scene, rays, tn, tx, sm, sx):
     return hit_parity, slot_parity
 
 
+def cull_work(rays, sb_rows, n_live, pt, psb, n_real, sbbox, pm):
+    """What the two cull kernels' inputs need, from the plain emulation of
+    their reject (ops/cull.py, deciding as the kernels do): the survivor
+    shares (block cull: of the live tiles' (tile, box) entries; pair cull:
+    of the real pairs' blocks) and each kernel's fp32 operations: the tile
+    reductions, the reject of every (live tile, box) and the slab tests of
+    the survivors (block cull: all 128 rays of each; pair cull: 128 for a
+    block no ray passes, 1 for a block some ray passes, ``pm`` its
+    mask).  The dense counts test every ray against every box.  Bytes:
+    each input the kernel reads, once, and its whole output (block cull:
+    the rays of the live tiles, the box rows; pair cull: the rays of the
+    tiles in the real pairs, their indices, the box table)."""
+    import torch
+    from prismarine_core_tpu_torch.ops import cull
+    n_live, n_real = int(n_live), int(n_real)
+    nt, nb = rays.shape[0] // 128 - 1, sb_rows.shape[1]
+    tile_b = 128 * rays.shape[1] * 4
+    bc_surv = int((~cull.block_cull_rejects(rays, sb_rows, n_live)[
+        :n_live]).sum())
+    surv = cull.pair_cull_survivors(pt, psb, n_real, rays, sbbox)
+    passing = ((pm[:, None] >> torch.arange(8, device=pm.device)) & 1) == 1
+    n_pass = int((surv & passing).sum())
+    n_fail = int((surv & ~passing).sum())
+    n_tiles = int(torch.unique(pt[:n_real]).numel())
+    return {"block_cull": dict(
+                share=bc_surv / max(n_live * nb, 1),
+                ops=(n_live * 128 * BOUND_OPS + n_live * nb * REJECT_OPS
+                     + bc_surv * 128 * SLAB_OPS),
+                dense_ops=n_live * 128 * nb * SLAB_OPS,
+                bytes=n_live * tile_b + sb_rows.numel() * 4 + nt * nb * 4),
+            "pair_cull": dict(
+                share=(n_pass + n_fail) / max(n_real * 8, 1),
+                ops=(n_tiles * 128 * BOUND_OPS + n_real * 8 * REJECT_OPS
+                     + (n_fail * 128 + n_pass) * SLAB_OPS),
+                dense_ops=n_real * 128 * 8 * SLAB_OPS,
+                bytes=(n_tiles * tile_b + 2 * n_real * 4 + pt.shape[0] * 4
+                       + sbbox.numel() * 4))}
+
+
 def bench_setup(dev, target_tris=100_000):
     """Scene, camera and config of bench.py's main metric, on ``dev``."""
     from prismarine_core_tpu_torch.models.camera import Camera
@@ -310,13 +363,18 @@ def phase_kernels(scene, cam, cfg, dev):
 
         # bounds from this run's inputs: every input read once, every
         # output written once; operations of the tests this data needs
-        n_rows, nb = rays.shape[0], sb_rows.shape[1]
+        # (the cull kernels': cull_work's, the dense count beside them)
+        n_rows = rays.shape[0]
         ray_b, pair_b = n_rows * 16 * 4, int(n_real) * 4
+        work = cull_work(rays, sb_rows, n_live, pt, psb, n_real, sbbox, pm)
+        dense = {k: bound(w["dense_ops"], w["bytes"]) for k, w in work.items()}
+        log(f"[kernels] {name}: cull survivors (plain emulation of the "
+            f"reject): block_cull {work['block_cull']['share']:.4f} of the "
+            f"live (tile, box) entries, pair_cull "
+            f"{work['pair_cull']['share']:.4f} of the "
+            f"real pairs' blocks")
         bounds = {
-            "block_cull": bound(int(n_live) * 128 * nsb * SLAB_OPS,
-                                ray_b + sb_rows.numel() * 4 + nt * nb * 4),
-            "pair_cull": bound(int(n_real) * 128 * 8 * SLAB_OPS,
-                               ray_b + 3 * pair_b + sbbox.numel() * 4),
+            **{k: bound(w["ops"], w["bytes"]) for k, w in work.items()},
             "sb_intersect": bound(n_sub * 128 * 128 * MT_OPS,
                                   ray_b + 3 * pair_b + ps.planes.numel() * 4
                                   + n_rows * 8),
@@ -365,13 +423,72 @@ def phase_kernels(scene, cam, cfg, dev):
         for k, (ms, pms, err) in times.items():
             times[k] = (ms, pms, err) + bounds[k]
             floor = (f", no-skip issue floor {floors[k]:.4f} ms "
-                     f"({floors[k] / ms:.3f} of it)" if k in floors else "")
+                     f"({floors[k] / ms:.3f} of it)" if k in floors else
+                     f", dense bound {dense[k][0]:.4f} ms by {dense[k][1]} "
+                     f"({dense[k][0] / ms:.3f} of it)" if k in dense else "")
             log(f"[kernels] {name} {k}: kernel {ms:.4f} ms, plain "
                 f"{pms:.4f} ms ({pms / ms:.1f}x), bound {bounds[k][0]:.4f} "
                 f"ms by {bounds[k][1]} ({bounds[k][0] / ms:.3f} of it)"
                 f"{floor}, max |kernel - plain| {err}")
         rows[name] = times
-    return rows
+    return rows, cull_step_inputs(scene, cfg, carry1, bounce_s[1])
+
+
+def cull_step_inputs(scene, cfg, carry, samples):
+    """Both cull kernels against their plain versions on every input one
+    bounce step gives them (the step at ``carry``: the closest query's
+    rounds 1 and 2, then the shadow query), recorded while the step runs
+    on the kernels: equal exactly, with survivor shares and kernel times.
+    Returns each kernel's largest |kernel - plain|."""
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.ops import cull
+    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    calls = {"block_cull": [], "pair_cull": []}
+    saved = pk.block_cull, pk.pair_cull
+
+    def recorder(k, fn):
+        def run(*args):
+            calls[k].append(args)
+            return fn(*args)
+        return run
+    pk.block_cull = recorder("block_cull", cull.block_cull)
+    pk.pair_cull = recorder("pair_cull", cull.pair_cull)
+    try:
+        make_bounce_step(scene, cfg)(carry, samples)
+    finally:
+        pk.block_cull, pk.pair_cull = saved
+    labels = ("closest round 1", "closest round 2", "shadow")
+    require(len(calls["block_cull"]) == len(labels)
+            and len(calls["pair_cull"]) == len(labels),
+            f"cull calls in one bounce step: "
+            f"{ {k: len(v) for k, v in calls.items()} }")
+    errs = {}
+    for label, bargs, pargs in zip(labels, calls["block_cull"],
+                                   calls["pair_cull"]):
+        rays, rows, n_live = bargs
+        tn, tn_p = cull.block_cull(*bargs), cull.block_cull_plain(*bargs)
+        require(torch.equal(tn, tn_p), f"bounce 1 {label}: block_cull != "
+                "plain")
+        pm, pm_p = cull.pair_cull(*pargs), cull.pair_cull_plain(*pargs)
+        require(torch.equal(pm, pm_p), f"bounce 1 {label}: pair_cull != "
+                "plain")
+        for k, e in (("block_cull", (tn - tn_p).abs().max().item()),
+                     ("pair_cull", (pm - pm_p).abs().max().item())):
+            errs[k] = max(errs.get(k, 0.0), e)
+        pt, psb, n_real, prays, sbbox = pargs
+        work = cull_work(rays, rows, n_live, pt, psb, n_real, sbbox, pm)
+        ms_b = cuda_ms(lambda: cull.block_cull(*bargs), 20)
+        ms_p = cuda_ms(lambda: cull.pair_cull(*pargs), 20)
+        log(f"[kernels] bounce1 {label}: n_live {int(n_live)}, "
+            f"{int((tn < INF_DIST).sum())} passing (tile, box) entries, "
+            f"{int(n_real)} pairs; survivors block_cull "
+            f"{work['block_cull']['share']:.4f}, pair_cull "
+            f"{work['pair_cull']['share']:.4f}; "
+            f"block_cull {ms_b:.4f} ms, pair_cull {ms_p:.4f} ms; == plain "
+            "exactly")
+    return errs
 
 
 def host_syncs(fn) -> collections.Counter:
@@ -592,8 +709,39 @@ def profile_once(fn, tag):
             f"x{n:<5d} {g}")
     for name, n, ms in rows[:15]:
         log(f"[{tag} profile]   {ms:9.3f} ms  x{n:<5d} {name}")
+    cull_ms = {name: (n, ms) for name, n, ms in rows if "cull_kernel" in name}
+    log(f"[{tag} profile] cull kernels: "
+        f"{ {k: (n, round(ms, 4)) for k, (n, ms) in cull_ms.items()} }, "
+        f"{sum(ms for _, ms in cull_ms.values()):.4f} ms; "
+        f"{launch_gaps(prof)}")
     return dict(wall_ms=wall, busy_ms=busy,
-                groups_ms={g: v[0] for g, v in groups.items()})
+                groups_ms={g: v[0] for g, v in groups.items()},
+                cull_ms=sum(ms for _, ms in cull_ms.values()))
+
+
+def launch_gaps(prof) -> str:
+    """The device's idle gap before each cull kernel (from the end of the
+    device op before it), beside the gap before any device op, from the
+    profile's device timeline."""
+    import statistics
+    import torch
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    gaps = {"cull": [], "all": []}
+    for prev, e in zip(ev, ev[1:]):
+        gap = max(e.time_range.start - prev.time_range.end, 0)
+        gaps["all"].append(gap)
+        if "cull_kernel" in e.name:
+            gaps["cull"].append(gap)
+    if not gaps["cull"]:
+        return "launch gap not measured (no cull kernel on the timeline)"
+    return ("device idle before a cull kernel: median "
+            f"{statistics.median(gaps['cull']):.1f} us, mean "
+            f"{statistics.mean(gaps['cull']):.1f} us, max "
+            f"{max(gaps['cull']):.1f} us over {len(gaps['cull'])}; before "
+            f"any device op: median {statistics.median(gaps['all']):.1f} "
+            f"us, mean {statistics.mean(gaps['all']):.1f} us")
 
 
 def phase_train(scene, cam, cfg, dev, target, samples):
@@ -715,7 +863,7 @@ def main() -> int:
         f"{scene.bvh.n_nodes} nodes, {scene.packets.n_superblocks} "
         f"superblocks, built in {time.perf_counter() - t0:.1f} s")
 
-    ktimes = phase_kernels(scene, cam, cfg, dev)
+    ktimes, step_errs = phase_kernels(scene, cam, cfg, dev)
     img, frame, samples = phase_frame(scene, cam, cfg, dev)
     phase_parity(scene, cam, cfg, img, samples)
     frame2 = phase_frame_mt2(scene, cam, cfg, img, samples)
@@ -745,7 +893,8 @@ def main() -> int:
          "launches_by_path": {"frame_mt": frame["launches"][k],
                               "frame_mt2": frame2["launches"][k],
                               "train_step_mxu": train["launches"][k]},
-         "max_abs_err": max(ktimes[s][k][2] for s in ktimes),
+         "max_abs_err": max([ktimes[s][k][2] for s in ktimes]
+                            + [step_errs.get(k, 0.0)]),
          "ms": ktimes["bounce1"][k][0], "plain_ms": ktimes["bounce1"][k][1],
          "bound_ms": ktimes["bounce1"][k][3],
          "bound_by": ktimes["bounce1"][k][4], "library_ms": None,

@@ -15,9 +15,18 @@ Each wrapper runs its plain PyTorch version when its tensors lie on the
 CPU, and launches the CUDA kernel when they lie on a card; it counts its
 kernel launches in ``.launches``.  The plain versions use the kernels'
 operation order and are exact references for them.
+
+Both kernels first reject whole (tile, box) entries with an interval test
+on the tile's ray bounds and run the slab test only on the survivors
+(``csrc/cull.cu`` proves the test conservative).  ``tile_ray_bounds`` and
+``tile_reject`` are that test in plain torch, deciding exactly as the
+kernels do; ``block_cull_rejects`` and ``pair_cull_survivors`` give the
+entries each kernel settles by it and the ones it tests exactly.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -94,6 +103,77 @@ def _ray_cols(r):
             "iv": (c(RC_IVX), c(RC_IVY), c(RC_IVZ)), "tc": c(RC_TCAP)}
 
 
+# ------------------------------------------------------ the tile-level reject
+
+@dataclasses.dataclass
+class TileBounds:
+    """Per-tile bounds over the live lanes (t_cap > 0) of 128-ray tiles."""
+
+    o_lo: torch.Tensor    # f32[T, 3] origin range (+inf / -inf: no live lane)
+    o_hi: torch.Tensor
+    iv_lo: torch.Tensor   # f32[T, 3] inverse-direction range
+    iv_hi: torch.Tensor
+    tc_max: torch.Tensor  # f32[T] largest t_cap (0: no live lane)
+    finite: torch.Tensor  # bool[T] every live lane's o and iv finite
+
+    def __getitem__(self, idx):
+        return TileBounds(*(getattr(self, f.name)[idx]
+                            for f in dataclasses.fields(self)))
+
+
+def tile_ray_bounds(rays):
+    """``TileBounds`` of every 128-row tile of the ray matrix ``rays``
+    f32[T*128, 16] (the kernels' tile reduction)."""
+    r = rays.reshape(-1, TILE, RAY_COLS)
+    tc = r[..., RC_TCAP]
+    live = (tc > 0.0)[..., None]
+    o = r[..., RC_OX:RC_OZ + 1]
+    iv = r[..., RC_IVX:RC_IVZ + 1]
+    inf = torch.tensor(float("inf"), device=rays.device)
+    bad = live & ~(torch.isfinite(o) & torch.isfinite(iv))
+    return TileBounds(
+        o_lo=torch.where(live, o, inf).amin(1),
+        o_hi=torch.where(live, o, -inf).amax(1),
+        iv_lo=torch.where(live, iv, inf).amin(1),
+        iv_hi=torch.where(live, iv, -inf).amax(1),
+        tc_max=torch.where(live[..., 0], tc, 0.0).amax(1),
+        finite=~bad.any(dim=(1, 2)))
+
+
+def tile_reject(bounds: TileBounds, lo, hi):
+    """bool[T, N]: True where the tile's interval test proves that no live
+    ray of tile t passes box n (``csrc/cull.cu``: ``tile_rejects``, the same
+    rounded arithmetic, so the same decisions).  ``bounds`` over T tiles;
+    ``lo``, ``hi`` f32[T or 1, N, 3].
+
+    On an axis where iv has one strict sign over the tile, the rounded
+    ``(plane - o) * iv`` at the corners of the origin and iv ranges bounds
+    every ray's near and far slab distance (rounding is monotone); the
+    entry is rejected when the largest near bound exceeds the smallest far
+    bound, the far bound is below 0 or the near bound exceeds the tile's
+    largest t_cap.  Other axes take no part.  A box with lo > hi on an axis
+    is never rejected, nor is any box of a tile with a non-finite o or iv on
+    a live lane; every box of a tile with no live lane is."""
+    def col(x):
+        return x[:, None, :]                              # [T, 1, 3]
+    iv_lo, iv_hi = col(bounds.iv_lo), col(bounds.iv_hi)
+    pos = iv_lo > 0.0
+    takes = pos | (iv_hi < 0.0)
+    o_near = torch.where(pos, col(bounds.o_hi), col(bounds.o_lo))
+    o_far = torch.where(pos, col(bounds.o_lo), col(bounds.o_hi))
+    dn = torch.where(pos, lo, hi) - o_near
+    df = torch.where(pos, hi, lo) - o_far
+    nl = torch.where(takes, torch.minimum(dn * iv_lo, dn * iv_hi),
+                     -float("inf")).amax(-1)
+    fu = torch.where(takes, torch.maximum(df * iv_lo, df * iv_hi),
+                     float("inf")).amin(-1)
+    tc_max = bounds.tc_max[:, None]
+    fails = (nl > fu) | (fu < 0.0) | (nl > tc_max)
+    ordered = (lo <= hi).all(-1)
+    return torch.where(tc_max > 0.0,
+                       fails & ordered & bounds.finite[:, None], True)
+
+
 # ---------------------------------------------------------------- block cull
 
 def block_cull_plain(rays, box_rows, n_live, chunk: int = 64):
@@ -114,6 +194,29 @@ def block_cull_plain(rays, box_rows, n_live, chunk: int = 64):
     return torch.where(live[:, None], out, INF_DIST)
 
 
+def _check_rows_aligned(rays):
+    """The kernels read ray rows as 16-byte vectors."""
+    if rays.data_ptr() % 16:
+        raise ValueError("rays must start on a 16-byte boundary")
+
+
+def _box_cols(box_rows):
+    """f32[8, nb_pad] box rows -> (lo, hi) f32[1, nb_pad, 3]."""
+    return box_rows[0:3].T[None], box_rows[3:6].T[None]
+
+
+def block_cull_rejects(rays, box_rows, n_live):
+    """bool[nt, nb_pad]: the (tile, box) entries the block-cull kernel
+    settles without a slab test (every tile >= ``n_live``, and the
+    rejects of ``tile_reject``)."""
+    nt = rays.shape[0] // TILE - 1
+    rej = tile_reject(tile_ray_bounds(rays[:nt * TILE]),
+                      *_box_cols(box_rows))
+    live = torch.arange(nt, device=rays.device) < as_count(n_live,
+                                                            rays.device)
+    return rej | ~live[:, None]
+
+
 def block_cull(rays, box_rows, n_live):
     """Per-(tile, box) entry distance f32[nt, nb_pad]; ``rays``
     f32[(nt+1)*128, 16], ``box_rows`` f32[8, nb_pad] (nb_pad % 128 == 0),
@@ -128,6 +231,7 @@ def block_cull(rays, box_rows, n_live):
     check_tensor(n_live, torch.int32, None, "n_live", rays.device, numel=1)
     if n_rows % TILE or nb_pad % TILE:
         raise ValueError("rays rows and nb_pad must be multiples of 128")
+    _check_rows_aligned(rays)
     nt = n_rows // TILE - 1
     out = torch.empty((nt, nb_pad), dtype=torch.float32, device=rays.device)
     code = _build.library().block_cull_launch(
@@ -164,6 +268,20 @@ def pair_cull_plain(pair_tile, pair_sb, n_real, rays, sb_boxes,
     return torch.where(real, out, 0)
 
 
+def pair_cull_survivors(pair_tile, pair_sb, n_real, rays, sb_boxes):
+    """bool[L, 8]: the blocks of each real pair that the pair-cull kernel
+    tests exactly (those ``tile_reject`` keeps); none for pairs >=
+    ``n_real``."""
+    dev = rays.device
+    boxes = sb_boxes[pair_sb.long()]                         # [L, 8, SB]
+    rej = tile_reject(tile_ray_bounds(rays)[pair_tile.long()],
+                      boxes[:, 0:3].transpose(1, 2),
+                      boxes[:, 3:6].transpose(1, 2))
+    real = torch.arange(pair_tile.shape[0], device=dev) < as_count(n_real,
+                                                                   dev)
+    return ~rej & real[:, None]
+
+
 def pair_cull(pair_tile, pair_sb, n_real, rays, sb_boxes):
     """8-bit block masks i32[L] of a tile-major (tile, superblock) pair
     list; ``sb_boxes`` f32[nsb+1, 8, 8] (``sb_box_table``), ``n_real`` i32
@@ -178,6 +296,7 @@ def pair_cull(pair_tile, pair_sb, n_real, rays, sb_boxes):
     check_tensor(pair_tile, torch.int32, (n_pairs,), "pair_tile", dev)
     check_tensor(pair_sb, torch.int32, (n_pairs,), "pair_sb", dev)
     check_tensor(n_real, torch.int32, None, "n_real", dev, numel=1)
+    _check_rows_aligned(rays)
     out = torch.empty((n_pairs,), dtype=torch.int32, device=dev)
     if n_pairs == 0:
         return out

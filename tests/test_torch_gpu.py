@@ -296,3 +296,127 @@ def test_wrappers_reject_mixed_devices(cuda_device):
         cull.block_cull(rays, sb_rows.cpu(), n_live)
     with pytest.raises(TypeError):
         cull.block_cull(rays, sb_rows, n_live.long())
+
+
+def _cull_case(name, dev):
+    from test_torch_cull_reject import make_case
+    return make_case(name, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["camera", "bounce", "shadow", "octants",
+                                  "tiny-d", "dead", "caps"])
+def test_cull_kernels_equal_plain_on_edge_cases(cuda_device, name):
+    """The edge cases of tests/test_torch_cull_reject.py through both cull
+    kernels: equal to the plain versions exactly (every box set, n_live and
+    n_live - 2, n_real = L and L - 5); on the coherent cases the plain
+    emulation of the reject settles some entries, so the kernels' reject
+    path ran."""
+    from test_torch_cull_reject import n_live_of, pair_lists
+    case = _cull_case(name, cuda_device)
+    rays = case["rays"]
+    n_live = n_live_of(rays)
+    for rows in case["rows"].values():
+        for n in (n_live, torch.clamp(n_live - 2, min=0)):
+            got = cull.block_cull(rays, rows, n)
+            assert torch.equal(got, cull.block_cull_plain(rays, rows, n))
+        if case["coherent"]:
+            assert bool(cull.block_cull_rejects(rays, rows, n_live)[
+                :int(n_live)].any())
+    for tname, table in case["tables"].items():
+        pt, psb = pair_lists(case, tname)
+        for n_real in (pt.shape[0], pt.shape[0] - 5):
+            n = torch.tensor(n_real, dtype=torch.int32, device=cuda_device)
+            got = cull.pair_cull(pt, psb, n, rays, table)
+            assert torch.equal(got, cull.pair_cull_plain(pt, psb, n, rays,
+                                                         table))
+        if case["coherent"]:
+            surv = cull.pair_cull_survivors(pt, psb, n, rays, table)
+            assert float(surv.float().mean()) < 1.0
+
+
+@pytest.mark.gpu
+def test_block_cull_one_ray_tiles_equal_plain(cuda_device):
+    """Tiles of one repeated ray, where the reject is exactly the slab
+    test, through the block-cull kernel: equal to the plain version."""
+    from test_torch_cull_reject import one_ray_tiles
+    rays, rows = one_ray_tiles(1, cuda_device)
+    n = torch.tensor(rays.shape[0] // TILE - 1, dtype=torch.int32,
+                     device=cuda_device)
+    assert torch.equal(cull.block_cull(rays, rows, n),
+                       cull.block_cull_plain(rays, rows, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["camera", "bounce", "shadow"])
+def test_cull_kernels_equal_plain_on_round_two(cuda_device, name):
+    """Round-2 inputs: the caps tightened by a round-1 result (K = 2
+    nearest superblocks per tile, through the kernels), then both cull
+    kernels on the tightened rays, equal to the plain versions."""
+    from test_torch_cull_reject import n_live_of
+    dev = cuda_device
+    case = _cull_case(name, dev)
+    rays = case["rays"]
+    nt = rays.shape[0] // TILE - 1
+    sb_rows, sbbox = case["rows"]["sb"], case["tables"]["sb"]
+    nsb = sbbox.shape[0] - 1
+    tn = cull.block_cull(rays, sb_rows, n_live_of(rays))[:, :nsb]
+    tn_sorted, sb_sorted = torch.sort(tn, dim=1, stable=True)
+    ok = tn_sorted[:, :2] < INF_DIST
+    pt, psb, n_real = pk.compact_pairs(ok, sb_sorted[:, :2])
+    pm = cull.pair_cull(pt, psb, n_real, rays, sbbox)
+    from test_torch_cull_reject import _hall
+    planes = _hall(dev)[0].packets.planes
+    best1 = si.sb_intersect(pt, psb, pm, n_real, rays, planes)[0]
+    rays2 = rays.clone()
+    rays2[:nt * TILE, 6] = torch.minimum(rays[:nt * TILE, 6],
+                                         best1[:nt * TILE])
+    assert bool((rays2[:, 6] < rays[:, 6]).any())
+    n_live2 = n_live_of(rays2)
+    tn2 = cull.block_cull(rays2, sb_rows, n_live2)
+    assert torch.equal(tn2, cull.block_cull_plain(rays2, sb_rows, n_live2))
+    pt2, psb2, n_real2 = pk.compact_pairs(tn2[:, :nsb] < INF_DIST)
+    pm2 = cull.pair_cull(pt2, psb2, n_real2, rays2, sbbox)
+    assert torch.equal(pm2, cull.pair_cull_plain(pt2, psb2, n_real2, rays2,
+                                                 sbbox))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["two_round", "single"])
+@pytest.mark.parametrize("name", ["camera", "bounce", "shadow"])
+def test_hall_query_equal_plain(cuda_device, name, strategy, request):
+    """The packet query on the small hall's camera, bounce and shadow rays
+    ("two_round" with K = 2, so that the prior-seeded round 2 runs, and
+    "single"; closest and any-hit): the same hits on the kernels as on the
+    plain versions."""
+    from test_torch_cull_reject import _hall
+    dev = cuda_device
+    scene, o, d, hit = _hall(dev)
+    if name != "camera":
+        p = o + hit.t[:, None] * d - 1e-3 * d
+        if name == "bounce":
+            g = torch.Generator(device="cpu").manual_seed(3)
+            n = torch.randn((o.shape[0], 3), generator=g).to(dev)
+            d = n / n.norm(dim=1, keepdim=True)
+        else:
+            to = torch.tensor([0.0, 5.5, 0.3], device=dev) - p
+            d = to / to.norm(dim=1, keepdim=True)
+        o = p
+    t_cap = torch.where(hit.tri >= 0, INF_DIST, 0.0)
+    bvh, ps, soup = scene.bvh, scene.packets, scene.triangles
+    kw = dict(strategy=strategy, k_round=2)
+
+    def run():
+        h = pk.intersect_closest_pallas(bvh, ps, soup, o, d, t_cap=t_cap,
+                                        **kw)
+        return h, pk.occluded_pallas(bvh, ps, soup, o, d, 0.5 * t_cap, **kw)
+
+    launches = (cull.block_cull.launches, cull.pair_cull.launches)
+    h, occ = run()
+    assert cull.block_cull.launches > launches[0]
+    assert cull.pair_cull.launches > launches[1]
+    request.getfixturevalue("plain_versions")
+    h_p, occ_p = run()
+    assert torch.equal(h.tri, h_p.tri) and torch.equal(h.t, h_p.t)
+    assert torch.equal(occ, occ_p)
+    assert bool((h.tri >= 0).any())
