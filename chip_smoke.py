@@ -30,7 +30,11 @@ Phases (any failure exits non-zero):
                 then both cull kernels against their plain versions on
                 every input of one bounce step at bounce 1 (the closest
                 query's rounds 1 and 2, the shadow query), recorded while
-                the step runs;
+                the step runs, and sb_intersect_mt2 against its plain
+                version and "mt" on the step's three sb_intersect inputs
+                (times of both forms); on every input the "mt2" walk's
+                stages and the share that run one chain, as its plain
+                model forms them (ops/sb_intersect.py:walk_stages);
   4. frame    — render_with_samples(..., with_stats=True) at bench.py's
                 main configuration, with every kernel's launch counter
                 set to 0 before and read after (each must be > 0 and at
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero):
                 place: the image must meet the CPU image test's bound;
   6. frame mt2 — the same frame under kernel_form="mt2": bit-identical to
                 the "mt" frame, sb_intersect_mt2 launched 1..12 times;
-                ms/frame;
+                ms/frame; one frame under torch.profiler (device busy,
+                the walk's device time, the idle share);
   7. train    — make_train_step at full width under kernel_form="mxu"
                 (target: the "mt" frame; start: init_params with the
                 diffuse RGB halved; TRAIN_KW: lr 0.02, normalized
@@ -59,9 +64,10 @@ Phases (any failure exits non-zero):
                 a profile of one step, and the losses under the cornell
                 box's own vertex rate (recorded, not required).
 
-The last lines are the kernel table as JSON (all five kernels), nvidia-smi's
-line, and ``{"ok": true, "device": {...}}``.  Nothing falls back to the
-CPU.
+The build's ptxas lines (registers, shared memory and spills of each
+kernel, by name) go to the log.  The last lines are the kernel table as
+JSON (all five kernels), nvidia-smi's line, and ``{"ok": true, "device":
+{...}}``.  Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ import dataclasses
 import json
 import linecache
 import math
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +107,8 @@ SLAB_OPS, MT_OPS, MXU_OPS = 23, 46, 39
 #: 2 max and 2 min across the axes)
 BOUND_OPS, REJECT_OPS = 13, 28
 TRAIN_STEPS = 8
+#: the queries of one bounce step, in order
+STEP_QUERIES = ("closest round 1", "closest round 2", "shadow")
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
 #: the 64-triangle cornell box
 CORNELL_KW = dict(lr=0.02, normalize_grads=True,
@@ -132,6 +141,30 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
+def ptxas_lines(text: str):
+    """Each kernel's ``-Xptxas -v`` lines (registers, shared memory,
+    spills), prefixed with its name demangled as far as the log needs
+    (``sb_intersect_walk_kernel<FormMT2>``)."""
+    name = "?"
+    for line in text.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?(_Z\w+)", line)
+        if m:
+            name = short_name(m.group(1))
+        elif "registers" in line or "spill" in line:
+            yield f"{name}: {line.strip()}"
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name and, for the walk, its form, from its mangled name
+    (``sb_intersect_walk_kernel<FormMT2>``)."""
+    m = re.search(r"\d+(\w+?_kernel)(?:INS_\d+(Form\w+?)E)?",
+                  mangled.split("prismarine")[-1])
+    if m is None:
+        return mangled
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over ``reps`` launches (CUDA events, after
     one warm-up call)."""
@@ -154,6 +187,19 @@ def bound(ops, nbytes):
     t_ops, t_bytes = ops / FP32_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
     return ((t_ops, "operations") if t_ops >= t_bytes
             else (t_bytes, "bytes"))
+
+
+def mt2_stages(pt, pm, n_real) -> str:
+    """The "mt2" walk's stages on one input and the share that run one
+    chain (a tile boundary or a unit's end), as the plain model
+    ``walk_stages`` forms them: the kernel's own pairing is not observed
+    (its results are the same bits whatever the pairing)."""
+    from prismarine_core_tpu_torch.ops import sb_intersect as si
+    _, chain, stage = si.walk_stages(pt, pm, n_real)
+    n = int(stage[-1]) + 1 if stage.numel() else 0
+    lone = n - int((chain == 1).sum())
+    return (f"mt2 stages (plain model) {n} ({chain.numel()} live "
+            f"sub-blocks), {lone / max(n, 1):.4f} of them one chain")
 
 
 def mxu_bounds(scene, rays, tn, tx, sm, sx):
@@ -274,18 +320,14 @@ def bench_setup(dev, target_tris=100_000):
     return scene, cam, cfg
 
 
-def phase_kernels(scene, cam, cfg, dev):
-    """Every kernel against its plain version on the card at the main
-    path's shapes (round 1 of the closest query, bounces 0 and 1)."""
+def first_bounce(scene, cam, cfg, dev):
+    """The camera rays of sample seed 1 and the carry after one bounce
+    step on them: (o, d, alive, carry1, bounce samples)."""
     import torch
-    from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.models.camera import generate_rays
-    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
     from prismarine_core_tpu_torch.ops.sampling import (
         make_coherent_sample_arrays)
     from prismarine_core_tpu_torch.render.integrator import make_bounce_step
-    from prismarine_core_tpu_torch.utils.config import INF_DIST
-
     gen = torch.Generator(device=dev).manual_seed(1)
     cam_s, bounce_s = make_coherent_sample_arrays(gen, cfg, block=(64, 64))
     o, d = generate_rays(cam, cfg, cam_s)
@@ -295,6 +337,47 @@ def phase_kernels(scene, cam, cfg, dev):
              torch.zeros((r, 3), device=dev), alive,
              torch.zeros((r, 3), device=dev), torch.zeros((r, 3), device=dev))
     carry1, _ = make_bounce_step(scene, cfg)(carry, bounce_s[0])
+    return o, d, alive, carry1, bounce_s
+
+
+def record_step(scene, cfg, carry, samples):
+    """The arguments of every block_cull, pair_cull and sb_intersect call
+    of one bounce step at ``carry`` (on the kernels): the closest query's
+    rounds 1 and 2, then the shadow query."""
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
+    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    calls = {"block_cull": [], "pair_cull": [], "sb_intersect": []}
+    saved = pk.block_cull, pk.pair_cull, pk.sb_intersect
+
+    def recorder(k, fn):
+        def run(*args):
+            calls[k].append(args)
+            return fn(*args)
+        return run
+    pk.block_cull = recorder("block_cull", cull.block_cull)
+    pk.pair_cull = recorder("pair_cull", cull.pair_cull)
+    pk.sb_intersect = recorder("sb_intersect", si.sb_intersect)
+    try:
+        make_bounce_step(scene, cfg)(carry, samples)
+    finally:
+        pk.block_cull, pk.pair_cull, pk.sb_intersect = saved
+    require(all(len(v) == len(STEP_QUERIES) for v in calls.values()),
+            f"kernel calls in one bounce step: "
+            f"{ {k: len(v) for k, v in calls.items()} }")
+    return calls
+
+
+def phase_kernels(scene, cam, cfg, dev):
+    """Every kernel against its plain version on the card at the main
+    path's shapes (round 1 of the closest query, bounces 0 and 1)."""
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+
+    o, d, alive, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
+    r = o.shape[0]
     ray_sets = {"bounce0": (o, d, alive),
                 "bounce1": (carry1[0], carry1[1], carry1[4])}
 
@@ -359,7 +442,7 @@ def phase_kernels(scene, cam, cfg, dev):
             f"{int(n_live)}, {int(n_real)} round-1 pairs, {n_sub} live "
             f"sub-blocks, {n_hit} hits; kernels == plain exactly, mt2 == mt "
             f"exactly; mxu vs mt: hit parity {hit_par:.6f}, slot parity "
-            f"{slot_par:.6f}")
+            f"{slot_par:.6f}; {mt2_stages(pt, pm, n_real)}")
 
         # bounds from this run's inputs: every input read once, every
         # output written once; operations of the tests this data needs
@@ -431,42 +514,24 @@ def phase_kernels(scene, cam, cfg, dev):
                 f"ms by {bounds[k][1]} ({bounds[k][0] / ms:.3f} of it)"
                 f"{floor}, max |kernel - plain| {err}")
         rows[name] = times
-    return rows, cull_step_inputs(scene, cfg, carry1, bounce_s[1])
+    return rows, step_inputs(scene, cfg, carry1, bounce_s[1])
 
 
-def cull_step_inputs(scene, cfg, carry, samples):
-    """Both cull kernels against their plain versions on every input one
-    bounce step gives them (the step at ``carry``: the closest query's
-    rounds 1 and 2, then the shadow query), recorded while the step runs
-    on the kernels: equal exactly, with survivor shares and kernel times.
+def step_inputs(scene, cfg, carry, samples):
+    """Both cull kernels and sb_intersect_mt2 against their plain versions
+    on every input one bounce step gives them (the step at ``carry``: the
+    closest query's rounds 1 and 2, then the shadow query), recorded while
+    the step runs on the kernels: equal exactly ("mt2" also equal to
+    "mt"), with survivor shares, the "mt2" walk's stages and kernel times.
     Returns each kernel's largest |kernel - plain|."""
     import torch
-    from prismarine_core_tpu_torch.accel import packet as pk
-    from prismarine_core_tpu_torch.ops import cull
-    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
     from prismarine_core_tpu_torch.utils.config import INF_DIST
-    calls = {"block_cull": [], "pair_cull": []}
-    saved = pk.block_cull, pk.pair_cull
-
-    def recorder(k, fn):
-        def run(*args):
-            calls[k].append(args)
-            return fn(*args)
-        return run
-    pk.block_cull = recorder("block_cull", cull.block_cull)
-    pk.pair_cull = recorder("pair_cull", cull.pair_cull)
-    try:
-        make_bounce_step(scene, cfg)(carry, samples)
-    finally:
-        pk.block_cull, pk.pair_cull = saved
-    labels = ("closest round 1", "closest round 2", "shadow")
-    require(len(calls["block_cull"]) == len(labels)
-            and len(calls["pair_cull"]) == len(labels),
-            f"cull calls in one bounce step: "
-            f"{ {k: len(v) for k, v in calls.items()} }")
+    calls = record_step(scene, cfg, carry, samples)
     errs = {}
-    for label, bargs, pargs in zip(labels, calls["block_cull"],
-                                   calls["pair_cull"]):
+    for label, bargs, pargs, sargs in zip(STEP_QUERIES, calls["block_cull"],
+                                          calls["pair_cull"],
+                                          calls["sb_intersect"]):
         rays, rows, n_live = bargs
         tn, tn_p = cull.block_cull(*bargs), cull.block_cull_plain(*bargs)
         require(torch.equal(tn, tn_p), f"bounce 1 {label}: block_cull != "
@@ -474,20 +539,34 @@ def cull_step_inputs(scene, cfg, carry, samples):
         pm, pm_p = cull.pair_cull(*pargs), cull.pair_cull_plain(*pargs)
         require(torch.equal(pm, pm_p), f"bounce 1 {label}: pair_cull != "
                 "plain")
+        mt = si.sb_intersect(*sargs)
+        mt2 = si.sb_intersect_mt2(*sargs)
+        ref = si.sb_intersect_plain(*sargs, chunk=128)
+        require(all(map(torch.equal, mt2, ref)), f"bounce 1 {label}: "
+                "sb_intersect_mt2 (t, slot) != plain")
+        require(all(map(torch.equal, mt2, mt)), f"bounce 1 {label}: "
+                "sb_intersect_mt2 (t, slot) != sb_intersect")
         for k, e in (("block_cull", (tn - tn_p).abs().max().item()),
-                     ("pair_cull", (pm - pm_p).abs().max().item())):
+                     ("pair_cull", (pm - pm_p).abs().max().item()),
+                     ("sb_intersect_mt2",
+                      (mt2[0] - ref[0]).abs().max().item())):
             errs[k] = max(errs.get(k, 0.0), e)
         pt, psb, n_real, prays, sbbox = pargs
         work = cull_work(rays, rows, n_live, pt, psb, n_real, sbbox, pm)
         ms_b = cuda_ms(lambda: cull.block_cull(*bargs), 20)
         ms_p = cuda_ms(lambda: cull.pair_cull(*pargs), 20)
+        ms_mt = cuda_ms(lambda: si.sb_intersect(*sargs), 5)
+        ms_mt2 = cuda_ms(lambda: si.sb_intersect_mt2(*sargs), 5)
+        n_sub = int(si.live_counts(pm, n_real).sum())
         log(f"[kernels] bounce1 {label}: n_live {int(n_live)}, "
             f"{int((tn < INF_DIST).sum())} passing (tile, box) entries, "
             f"{int(n_real)} pairs; survivors block_cull "
             f"{work['block_cull']['share']:.4f}, pair_cull "
             f"{work['pair_cull']['share']:.4f}; "
             f"block_cull {ms_b:.4f} ms, pair_cull {ms_p:.4f} ms; == plain "
-            "exactly")
+            f"exactly; {n_sub} live sub-blocks, sb_intersect {ms_mt:.4f} "
+            f"ms, sb_intersect_mt2 {ms_mt2:.4f} ms, mt2 == mt == plain "
+            f"exactly; {mt2_stages(pt, pm, n_real)}")
     return errs
 
 
@@ -646,8 +725,10 @@ def phase_frame_mt2(scene, cam, cfg, img, samples, n_frames=3):
     ms = 1e3 * sum(times) / n_frames
     log(f"[frame mt2] bit-identical to the mt frame; {ms:.3f} ms/frame over "
         f"{n_frames} frames ({', '.join(f'{1e3 * t:.3f}' for t in times)})")
+    prof = profile_once(lambda: render_with_samples(scene, cam, cfg2,
+                                                    *samples), "frame mt2")
     return dict(ms_per_frame=ms, frame_ms=[1e3 * t for t in times],
-                launches=launches)
+                launches=launches, profile=prof)
 
 
 def _cos(a, b):
@@ -710,13 +791,19 @@ def profile_once(fn, tag):
     for name, n, ms in rows[:15]:
         log(f"[{tag} profile]   {ms:9.3f} ms  x{n:<5d} {name}")
     cull_ms = {name: (n, ms) for name, n, ms in rows if "cull_kernel" in name}
+    walk_ms = {name: (n, ms) for name, n, ms in rows
+               if "sb_intersect_walk_kernel" in name}
     log(f"[{tag} profile] cull kernels: "
         f"{ {k: (n, round(ms, 4)) for k, (n, ms) in cull_ms.items()} }, "
         f"{sum(ms for _, ms in cull_ms.values()):.4f} ms; "
         f"{launch_gaps(prof)}")
+    log(f"[{tag} profile] walk kernels: "
+        f"{ {k: (n, round(ms, 4)) for k, (n, ms) in walk_ms.items()} }, "
+        f"{sum(ms for _, ms in walk_ms.values()):.4f} ms")
     return dict(wall_ms=wall, busy_ms=busy,
                 groups_ms={g: v[0] for g, v in groups.items()},
-                cull_ms=sum(ms for _, ms in cull_ms.values()))
+                cull_ms=sum(ms for _, ms in cull_ms.values()),
+                walk_ms=sum(ms for _, ms in walk_ms.values()))
 
 
 def launch_gaps(prof) -> str:
@@ -852,9 +939,8 @@ def main() -> int:
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt")
     if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+        for line in ptxas_lines(ptxas.read_text()):
+            log(f"[build] {line}")
 
     t0 = time.perf_counter()
     scene, cam, cfg = bench_setup(dev)

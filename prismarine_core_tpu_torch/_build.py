@@ -40,11 +40,9 @@ _SIGNATURES = {
     # prior_t, prior_slot, keys, csum, unit_pair, out_t, out_slot, n_rows,
     # n_pairs, unit, stream
     "sb_intersect_launch": (_P,) * 14 + (_I, _I, _I, _P),
-    # tile_start, pair_sb, pair_mask, n_real, rays, planes, prior_t,
-    # prior_slot, out_t, out_slot, n_tiles, stream
-    "sb_intersect_mt2_launch": (_P,) * 10 + (_I, _P),
 }
-# the "mxu" walk takes the "mt" walk's arguments
+# the "mt2" and "mxu" walks take the "mt" walk's arguments
+_SIGNATURES["sb_intersect_mt2_launch"] = _SIGNATURES["sb_intersect_launch"]
 _SIGNATURES["sb_intersect_mxu_launch"] = _SIGNATURES["sb_intersect_launch"]
 
 _lib = None

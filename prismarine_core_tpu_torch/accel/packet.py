@@ -12,9 +12,10 @@ The counterpart of the ``cull_impl="pallas2"`` path of
 4. candidate pairs compact tile-major (``compact_pairs``), ``pair_cull``
    refines each to an 8-bit block mask, and the pair intersector of the
    chosen ``kernel_form`` runs the Moller-Trumbore of every live
-   sub-block, keeping per-ray closest hits: "mt" (``sb_intersect``),
-   "mt2" (``sb_intersect_mt2``, the same result bit for bit) or "mxu"
-   (``sb_intersect_mxu`` on coefficient planes built per query by
+   sub-block, keeping per-ray closest hits, all three forms on one
+   balanced walk: "mt" (``sb_intersect``), "mt2" (``sb_intersect_mt2``,
+   two sub-blocks of a tile a stage, the same result bit for bit) or
+   "mxu" (``sb_intersect_mxu`` on coefficient planes built per query by
    ``mxu_planes_from_planes``);
 5. "two_round" (closest-hit): each tile's K nearest superblocks first,
    then one re-cull of the rest under the tightened per-ray caps;

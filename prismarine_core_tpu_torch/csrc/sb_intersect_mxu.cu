@@ -47,6 +47,7 @@ constexpr int MXU_USED = 19;                    // (row, quantity) terms read
 struct FormMXU {
   static constexpr int W = 20;
   static constexpr int R = 2;   // rays per thread (at 4: 101 registers)
+  static constexpr int CHAINS = 1;  // sub-blocks per stage
   struct Ray {
     float dx, dy, dz, cx, cy, cz, ox, oy, oz, one;
     __device__ __forceinline__ void load(const float* r) {

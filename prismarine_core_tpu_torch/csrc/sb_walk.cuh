@@ -1,7 +1,7 @@
-// The balanced walk of the pair intersectors "mt" and "mxu": one design
-// for both, each form supplying the staged layout and the body of one
-// ray-triangle test (sb_intersect.cu: FormMT, sb_intersect_mxu.cu:
-// FormMXU).
+// The balanced walk of the pair intersectors "mt", "mt2" and "mxu": one
+// design for all three, each form supplying the staged layout, the body
+// of one ray-triangle test, its rays per thread and its chains per stage
+// (sb_intersect.cu: FormMT, FormMT2; sb_intersect_mxu.cu: FormMXU).
 //
 // Function (as the plain versions in ops/sb_intersect.py): per ray row,
 // the closest (t, slot) after a tile-major pair list, from the prior or
@@ -19,9 +19,10 @@
 //   the list, across tile boundaries (the wrapper passes WALK_UNIT of
 //   ops/sb_intersect.py, which its torch emulation of the walk uses too).
 //   A one-block plan kernel takes the prefix sum of the masks' popcounts
-//   (csum) and, for every unit, the pair it starts in (unit_pair).  A persistent grid (the SMs times the
-//   resident blocks per SM) takes units from a counter in device memory;
-//   the unit count is read there too, so the host never waits.
+//   (csum) and, for every unit, the pair it starts in (unit_pair).  A
+//   persistent grid (the SMs times the resident blocks per SM) takes
+//   units from a counter in device memory; the unit count is read there
+//   too, so the host never waits.
 // * Keys: every ray row holds one 64-bit key, (bits of t) << 32 |
 //   (p - tile_start[tile]) * 1024 + k * 128 + lane + 1.  Positive floats
 //   order like their bits, so the minimum key is the closest t with the
@@ -44,13 +45,27 @@
 // * Fewer tests computed in full: the form's test skips its second half
 //   (v and t) when no lane of the warp passes the first (|det| >= eps and
 //   0 <= u <= 1), which implies the full predicate fails.
-// * Staging: each thread copies its triangle's operands into shared
-//   memory right before the sub-block is tested; the other resident
-//   blocks of the SM hide the loads (a cp.async copy of the next
-//   sub-block measured slower on the H100, PERF.md).  Sub-block i goes
-//   into buffer i & 1, so one barrier per sub-block suffices: a thread
-//   stages i + 2 only after the barrier of i + 1, which every thread
-//   reaches after testing i.
+// * Stages and chains: a stage is what one barrier stages and the block
+//   then tests.  With Form::CHAINS = 1 ("mt", "mxu") it is one live
+//   sub-block.  With 2 ("mt2") it is the next two live sub-blocks of the
+//   unit when both lie in one ray tile, else one (a tile boundary, or
+//   the unit's last sub-block): each thread then tests its rays against
+//   triangle jj of both sub-blocks in one loop body, two independent
+//   Moller-Trumbore chains, and a lone stage runs only the first chain
+//   (a block-uniform branch; nothing is computed and dropped).  Each
+//   chain keeps its own (t, index) per ray, folded with a strict < in
+//   list order, and votes its own skip; the chains meet as keys at the
+//   flush, where the key minimum is the closest t, then the earliest
+//   (pair, k, lane).  (One running best shared by the chains would fold
+//   the second sub-block's triangle jj before the first's jj + 1 and
+//   could keep the later of two equal t.)
+// * Staging: each thread copies its triangle's operands (of each of the
+//   stage's sub-blocks) into shared memory right before the stage is
+//   tested; the other resident blocks of the SM hide the loads (a
+//   cp.async copy of the next sub-block measured slower on the H100,
+//   PERF.md).  Stage s goes into buffer s & 1, so one barrier per stage
+//   suffices: a thread stages s + 2 only after the barrier of s + 1,
+//   which every thread reaches after testing s.
 //
 // The test bodies are the plain versions' operation order, and the
 // library is built with -fmad=false, so (t, slot) equal the plain
@@ -171,19 +186,28 @@ static __global__ void sb_intersect_keys_decode_kernel(
 }
 
 // The block's folded (t, index) of one tile's rays into their keys: the
-// triangle groups meet in shared memory, then one atomicMin per ray.
-template <int R>
+// chains meet as keys in registers, the triangle groups in shared memory,
+// then one atomicMin per ray.
+template <int R, int C>
 __device__ __forceinline__ void flush(walk_key* __restrict__ keys,
                                       walk_key (*s_red)[TILE], int tile,
                                       int ray0, int tgroup, int tid,
-                                      const float* best_t,
-                                      const unsigned* best_i) {
+                                      const float (&best_t)[C][R],
+                                      const unsigned (&best_i)[C][R]) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    s_red[tgroup][ray0 + r * 32] =
-        best_i[r] != 0
-            ? (static_cast<walk_key>(__float_as_uint(best_t[r])) << 32) | best_i[r]
-            : ~0ull;
+  for (int r = 0; r < R; ++r) {
+    walk_key v = ~0ull;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const walk_key w =
+          best_i[c][r] != 0
+              ? (static_cast<walk_key>(__float_as_uint(best_t[c][r])) << 32) |
+                    best_i[c][r]
+              : ~0ull;
+      v = w < v ? w : v;
+    }
+    s_red[tgroup][ray0 + r * 32] = v;
+  }
   __syncthreads();
   walk_key v = s_red[0][tid];
 #pragma unroll
@@ -193,6 +217,36 @@ __device__ __forceinline__ void flush(walk_key* __restrict__ keys,
   }
   if (v != ~0ull) atomicMin(keys + static_cast<size_t>(tile) * TILE + tid, v);
   __syncthreads();
+}
+
+// The thread's triangles j0 .. j0 + TRIS - 1 of a stage's first N staged
+// sub-blocks against its rays: chain c tests sub-block c (index base[c] +
+// triangle) and folds into its own (t, index) per ray with a strict <.
+template <class Form, int N, int C>
+__device__ __forceinline__ void test_stage(
+    const float4 (*tri)[BLOCK][Form::W / 4], int j0,
+    const typename Form::Ray (&ray)[Form::R], float (&best_t)[C][Form::R],
+    unsigned (&best_i)[C][Form::R], const unsigned (&base)[C]) {
+  constexpr int W4 = Form::W / 4;
+  constexpr int R = Form::R;
+#pragma unroll 2
+  for (int jj = 0; jj < WalkShape<R>::TRIS; ++jj) {
+    float4 op[N][W4];
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int w = 0; w < W4; ++w) op[c][w] = tri[c][j0 + jj][w];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const float tt = Form::test(op[c], ray[r]);
+        if (tt < best_t[c][r]) {
+          best_t[c][r] = tt;
+          best_i[c][r] = base[c] + j0 + jj;
+        }
+      }
+  }
 }
 
 template <class Form>
@@ -208,8 +262,10 @@ sb_intersect_walk_kernel(const int* __restrict__ tile_start,
                          walk_key* __restrict__ keys, int n_rows) {
   constexpr int W4 = Form::W / 4;
   constexpr int R = Form::R;
+  constexpr int C = Form::CHAINS;
+  static_assert(C == 1 || C == 2, "one or two chains per stage");
   typedef WalkShape<R> Shape;
-  __shared__ __align__(16) float4 s_tri[2][BLOCK][W4];
+  __shared__ __align__(16) float4 s_tri[2][C][BLOCK][W4];
   __shared__ walk_key s_red[Shape::TRI_GROUPS][TILE];
   __shared__ int s_unit;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -235,49 +291,66 @@ sb_intersect_walk_kernel(const int* __restrict__ tile_start,
 
     int cur_tile = -1, run_start = 0;
     typename Form::Ray ray[R];
-    float best_t[R];
-    unsigned best_i[R];
-    for (int i = 0; i < n; ++i) {
-      Form::stage(reinterpret_cast<float*>(s_tri[i & 1][tid]), planes,
-                  pair_sb[p], __ffs(m) - 1, tid);
+    float best_t[C][R];
+    unsigned best_i[C][R];
+    // (p, m's lowest bit) is the unit's live sub-block i
+    for (int i = 0, s = 0; i < n; ++s) {
+      const int pa = p, ka = __ffs(m) - 1;
+      const int tile = pair_tile[pa];
+      int pb = pa, kb = -1;                     // kb < 0: a lone stage
+      if (C == 2 && i + 1 < n) {                // look at sub-block i + 1
+        m &= m - 1;
+        while (m == 0) m = pair_mask[++p] & 0xff;
+        if (pair_tile[p] == tile) {
+          pb = p;
+          kb = __ffs(m) - 1;
+        }
+      }
+      const bool two = kb >= 0;
+      Form::stage(reinterpret_cast<float*>(s_tri[s & 1][0][tid]), planes,
+                  pair_sb[pa], ka, tid);
+      if (two)
+        Form::stage(reinterpret_cast<float*>(s_tri[s & 1][C - 1][tid]),
+                    planes, pair_sb[pb], kb, tid);
       __syncthreads();
 
-      const int tile = pair_tile[p];
       if (tile != cur_tile) {
         if (cur_tile >= 0)
-          flush<R>(keys, s_red, cur_tile, ray0, tgroup, tid, best_t, best_i);
+          flush<R, C>(keys, s_red, cur_tile, ray0, tgroup, tid, best_t,
+                      best_i);
         cur_tile = tile;
         run_start = tile_start[tile];
         const size_t row0 = static_cast<size_t>(tile) * TILE + ray0;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           ray[r].load(rays + (row0 + r * 32) * RAY_COLS);
-          best_t[r] = __int_as_float(0x7f800000);
-          best_i[r] = 0;
-        }
-      }
-      const unsigned base = static_cast<unsigned>(
-          (p - run_start) * SB_LANES + (__ffs(m) - 1) * BLOCK + 1);
-      const float4* tri = s_tri[i & 1][j0];
-#pragma unroll 2
-      for (int jj = 0; jj < Shape::TRIS; ++jj) {
-        float4 op[W4];
 #pragma unroll
-        for (int w = 0; w < W4; ++w) op[w] = tri[jj * W4 + w];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float tt = Form::test(op, ray[r]);
-          if (tt < best_t[r]) {
-            best_t[r] = tt;
-            best_i[r] = base + j0 + jj;
+          for (int c = 0; c < C; ++c) {
+            best_t[c][r] = __int_as_float(0x7f800000);
+            best_i[c][r] = 0;
           }
         }
       }
-      m &= m - 1;                               // the next live sub-block
-      if (i + 1 < n)
-        while (m == 0) m = pair_mask[++p] & 0xff;
+      unsigned base[C];
+      base[0] = static_cast<unsigned>((pa - run_start) * SB_LANES +
+                                      ka * BLOCK + 1);
+      if (C == 2)
+        base[C - 1] = static_cast<unsigned>((pb - run_start) * SB_LANES +
+                                            kb * BLOCK + 1);
+      if (two)
+        test_stage<Form, C, C>(s_tri[s & 1], j0, ray, best_t, best_i, base);
+      else
+        test_stage<Form, 1, C>(s_tri[s & 1], j0, ray, best_t, best_i, base);
+      // past the stage: (p, m) already holds sub-block i + 1 after a lone
+      // stage that looked ahead
+      i += two ? 2 : 1;
+      if (C == 1 || two) {
+        m &= m - 1;
+        if (i < n)
+          while (m == 0) m = pair_mask[++p] & 0xff;
+      }
     }
-    flush<R>(keys, s_red, cur_tile, ray0, tgroup, tid, best_t, best_i);
+    flush<R, C>(keys, s_red, cur_tile, ray0, tgroup, tid, best_t, best_i);
   }
 }
 

@@ -15,8 +15,9 @@ hit at exactly t_cap is rejected.
   of ``csrc/sb_walk.cuh``, replacing
   ``prismarine_core_tpu/ops/pallas_intersect.py:_sb_kernel``): the
   elementwise Moller-Trumbore on the SoA planes.
-* ``sb_intersect_mt2`` (form "mt2"; ``csrc/sb_intersect.cu``, one block
-  per ray tile, replacing ``_sb_kernel_mt2``): two sub-blocks per region;
+* ``sb_intersect_mt2`` (form "mt2"; ``csrc/sb_intersect.cu`` on the same
+  walk, replacing ``_sb_kernel_mt2``): each stage of the walk holds two
+  live sub-blocks of one ray tile, tested as two independent chains;
   equal to "mt" bit for bit, so its plain version is
   ``sb_intersect_plain``.
 * ``sb_intersect_mxu`` (form "mxu"; CUDA ``csrc/sb_intersect_mxu.cu`` on
@@ -26,11 +27,11 @@ hit at exactly t_cap is rejected.
   ``mxu_planes_from_planes``; plain version ``sb_intersect_mxu_plain``.
 
 Tie rule: among equal t, the earliest (pair, k, lane) in list order wins.
-The "mt2" kernel gets it from its sequential strict ``<`` over a tile's
-pairs; the plain versions from a first-occurrence argmin over (k, lane)
+The plain versions get it from a first-occurrence argmin over (k, lane)
 per pair, then the earliest pair holding the minimum; the walk from
 64-bit keys (bits of t, then the position in the tile's run) folded with
-``atomicMin``.  ``work_units``, ``keys_init``, ``keys_decode`` and
+``atomicMin``, in "mt2" after a strict ``<`` fold per chain.
+``work_units``, ``walk_stages``, ``keys_init``, ``keys_decode`` and
 ``sb_walk_emulation`` are that walk in plain torch.  (The JAX kernels
 break ties by grid step, then lane, then (pair, k); that differs only
 where two triangles give bit-equal t, such as on shared edges.)
@@ -330,24 +331,107 @@ def keys_decode(keys, rays, prior, tile_start, pair_sb):
         torch.int32)
 
 
+def walk_stages(pair_tile, pair_mask, n_real, unit: int = WALK_UNIT):
+    """The "mt2" walk's stages in plain torch: (items i64[n, 2], chain
+    i64[n], stage i64[n]).  ``items`` are the live (pair, k) sub-blocks in
+    list order, cut into units of ``unit``; within a unit each run of
+    consecutive items of one ray tile is cut into stages of two (chain 0,
+    then chain 1) and, where the run is odd, a lone last stage (chain 0
+    only).  ``stage`` numbers the stages in list order.  (The CUDA walk
+    forms the same stages as it goes: it pairs a sub-block with the next
+    one of its unit when that lies in the same tile.)"""
+    dev = pair_mask.device
+    items = _live_items(pair_mask, n_real)
+    n = items.shape[0]
+    pos = torch.arange(n, device=dev)
+    tile = pair_tile.long()[items[:, 0]]
+    # a run starts at each item whose unit or tile is not the last one's
+    new_run = torch.ones((n,), dtype=torch.bool, device=dev)
+    new_run[1:] = (pos[1:] % unit == 0) | (tile[1:] != tile[:-1])
+    run_start = torch.cummax(torch.where(new_run, pos, 0), 0)[0]
+    chain = (pos - run_start) % 2
+    return items, chain, torch.cumsum(chain == 0, 0) - 1
+
+
+def _live_items(pair_mask, n_real):
+    """i64[n, 2]: the live (pair, k) sub-blocks of the real pairs, in list
+    order."""
+    dev = pair_mask.device
+    real = torch.arange(pair_mask.shape[0], device=dev) < as_count(n_real,
+                                                                   dev)
+    live = (((pair_mask[:, None] >> torch.arange(SB, device=dev)) & 1) == 1)
+    return torch.nonzero(live & real[:, None])
+
+
+def _emulate_chains(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                    prior, unit):
+    """The "mt2" walk in plain torch: the stages of ``walk_stages`` in
+    order; each chain keeps its own first-minimum (t, index) per ray of the
+    current tile with a strict ``<`` in list order; at each tile change
+    and at each unit's end the chains' keys meet (their minimum) and fold
+    into the rows' keys."""
+    dev = rays.device
+    tile_start = tile_runs(pair_tile, rays.shape[0]).long()
+    keys = keys_init(rays, prior)
+    items, chain, _ = walk_stages(pair_tile, pair_mask, n_real, unit)
+    tiles = rays.reshape(-1, TILE, RAY_COLS)
+    lanes = torch.arange(TILE, device=dev)
+    no_key = torch.iinfo(torch.int64).max
+    best_t = best_i = cur = None                # cur: (unit, tile) folding
+
+    def flush():
+        k = torch.where(best_i != 0,
+                        (best_t.view(torch.int32).long() << 32) | best_i,
+                        no_key).amin(0)
+        rows = cur[1] * TILE + lanes
+        keys[rows] = torch.minimum(keys[rows], k)
+
+    starts = torch.nonzero(chain == 0)[:, 0].tolist()
+    for first, end in zip(starts, starts[1:] + [items.shape[0]]):
+        p, k = items[first:end].T               # a stage: 1 or 2 chains
+        tile = int(pair_tile[p[0]])
+        if cur != (first // unit, tile):
+            if cur is not None:
+                flush()
+            cur = (first // unit, tile)
+            best_t = torch.full((2, TILE), float("inf"), device=dev)
+            best_i = torch.zeros((2, TILE), dtype=torch.int64, device=dev)
+        pl = planes[pair_sb[p].long()].reshape(-1, PLANE_ROWS, SB, BLOCK)
+        tt = _mt_grid(tiles[tile].expand(end - first, -1, -1),
+                      pl[torch.arange(end - first, device=dev), :, k])
+        for c in range(end - first):            # chain c tests item c
+            j = torch.argmin(tt[c], dim=1)      # first minimum over lanes
+            t = torch.gather(tt[c], 1, j[:, None])[:, 0]
+            idx = ((p[c] - tile_start[tile]) * (SB * BLOCK) + k[c] * BLOCK
+                   + j + 1)
+            better = t < best_t[c]
+            best_t[c] = torch.where(better, t, best_t[c])
+            best_i[c] = torch.where(better, idx, best_i[c])
+    if cur is not None:
+        flush()
+    return keys_decode(keys, rays, prior, tile_start, pair_sb)
+
+
 def sb_walk_emulation(form, pair_tile, pair_sb, pair_mask, n_real, rays,
                       planes, prior=None, unit: int = WALK_UNIT):
-    """The CUDA walk in plain torch: work units of ``unit`` live
-    sub-blocks in list order, each folding its tests' int64 keys into the
-    rows' keys with ``scatter_reduce("amin")``, then the decode.  ``form``
-    "mt" (planes f32[nsb+1, 16, 1024]) or "mxu" (coefficient planes
-    f32[nsb+1, 16, 4096]).  Equal to ``sb_intersect_plain`` /
+    """The CUDA walk in plain torch, then the decode.  ``form`` "mt"
+    (planes f32[nsb+1, 16, 1024]) or "mxu" (coefficient planes f32[nsb+1,
+    16, 4096]): work units of ``unit`` live sub-blocks in list order, each
+    folding its tests' int64 keys into the rows' keys with
+    ``scatter_reduce("amin")``.  "mt2" (the "mt" planes): the stages of
+    ``walk_stages``, two chains each folded in order
+    (``_emulate_chains``).  Equal to ``sb_intersect_plain`` /
     ``sb_intersect_mxu_plain`` bit for bit, ties included."""
+    if form == "mt2":
+        return _emulate_chains(pair_tile, pair_sb, pair_mask, n_real, rays,
+                               planes, prior, unit)
     grid, width = ((_mt_grid, BLOCK) if form == "mt"
                    else (_mxu_grid, MXU_Q * BLOCK))
     dev = rays.device
     tile_start = tile_runs(pair_tile, rays.shape[0])
     keys = keys_init(rays, prior)
     csum, unit_pair = work_units(pair_mask, n_real, unit)
-    real = torch.arange(pair_mask.shape[0], device=dev) < as_count(n_real,
-                                                                   dev)
-    live = (((pair_mask[:, None] >> torch.arange(SB, device=dev)) & 1) == 1)
-    items = torch.nonzero(live & real[:, None])     # (p, k) in list order
+    items = _live_items(pair_mask, n_real)
     tiles = rays.reshape(-1, TILE, RAY_COLS)
     lanes = torch.arange(BLOCK, device=dev)
     for u in range(unit_pair.shape[0]):
@@ -419,26 +503,6 @@ def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
     return out_t, out_slot
 
 
-def _launch_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
-                prior):
-    """Launch the "mt2" kernel (one block per ray tile)."""
-    tile_start = _check(SB * BLOCK, pair_tile, pair_sb, pair_mask, n_real,
-                        rays, planes, prior)
-    dev = rays.device
-    n_rows = rays.shape[0]
-    out_t = torch.empty((n_rows,), dtype=torch.float32, device=dev)
-    out_slot = torch.empty((n_rows,), dtype=torch.int32, device=dev)
-    code = _build.library().sb_intersect_mt2_launch(
-        tile_start.data_ptr(), pair_sb.data_ptr(), pair_mask.data_ptr(),
-        n_real.data_ptr(), rays.data_ptr(), planes.data_ptr(),
-        prior[0].data_ptr() if prior is not None else None,
-        prior[1].data_ptr() if prior is not None else None,
-        out_t.data_ptr(), out_slot.data_ptr(), n_rows // TILE,
-        _build.stream_ptr(dev))
-    _build.check(code, "sb_intersect_mt2_launch")
-    return out_t, out_slot
-
-
 def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
                  prior=None):
     """Form "mt": closest (t, slot) per ray row after executing a
@@ -458,12 +522,12 @@ def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
 def sb_intersect_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
                      prior=None):
     """Form "mt2": the arguments and result of ``sb_intersect`` bit for
-    bit, computed two sub-blocks per region."""
+    bit, computed on the walk two sub-blocks of one ray tile a stage."""
     if rays.device.type == "cpu":
         return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
                                   rays, planes, prior)
-    out = _launch_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
-                      prior)
+    out = _launch("sb_intersect_mt2_launch", SB * BLOCK, pair_tile, pair_sb,
+                  pair_mask, n_real, rays, planes, prior)
     sb_intersect_mt2.launches += 1
     return out
 

@@ -66,9 +66,10 @@ class RenderConfig:
     #: pair-list alignment of the JAX two-level cull; the port's kernels
     #: take unaligned lists, so this only exists for config parity
     cull_pps: int = 0
-    #: pair-intersector form: "mt" (elementwise), "mt2" (two sub-blocks
-    #: per region, the same result bit for bit) or "mxu" (determinant
-    #: form on coefficient planes)
+    #: pair-intersector form: "mt" (elementwise), "mt2" (elementwise, two
+    #: sub-blocks of a ray tile per stage of the walk as two chains, the
+    #: same result bit for bit) or "mxu" (determinant form on coefficient
+    #: planes)
     kernel_form: str = "mt"
     anyhit_cull_impl: str = ""
     primary_identity: bool = False

@@ -140,11 +140,13 @@ def test_kernel_forms_equal_plain(cuda_device, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", ["mt", "mxu", "mt2"])
-@pytest.mark.parametrize("layout", ["dense", "sparse", "one-tile", "bvh"])
+@pytest.mark.parametrize("layout", ["dense", "sparse", "one-tile", "odd",
+                                    "single", "bvh"])
 def test_walk_ties_and_imbalance_equal_plain(cuda_device, layout, form):
     """The tie and imbalance cases of tests/test_torch_walk.py through the
     kernels: equal to the plain versions exactly in every pass (round 1,
-    a prior-seeded pass over the same list, one over n_real = L - 3)."""
+    a prior-seeded pass over the same list, one over n_real = L - 3); on
+    "odd" and "single" the "mt2" walk runs lone stages at tile ends."""
     from test_torch_walk import make_case, passes, plain
     case = make_case(layout, cuda_device)
     kernel = {"mt": si.sb_intersect, "mt2": si.sb_intersect_mt2,
@@ -156,7 +158,7 @@ def test_walk_ties_and_imbalance_equal_plain(cuda_device, layout, form):
         n = torch.tensor(n_real, dtype=torch.int32, device=cuda_device)
         got = kernel(case["pt"], case["psb"], case["pm"], n, case["rays"],
                      pl, prior)
-        ref = plain("mxu" if form == "mxu" else "mt", case, n_real, prior)
+        ref = plain(form, case, n_real, prior)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         first = got if first is None else first
     assert bool((first[1] >= 0).any())

@@ -1,7 +1,8 @@
 """The pair intersectors' balanced walk in plain torch (work units, 64-bit
-keys folded with ``scatter_reduce("amin")``, decode) against the plain
-versions ``sb_intersect_plain`` and ``sb_intersect_mxu_plain``, bit for
-bit, on inputs built to stress the tie rule and the work split:
+keys folded with ``scatter_reduce("amin")``; for "mt2" the stages of two
+sub-blocks of one tile, each chain folded in list order; decode) against
+the plain versions ``sb_intersect_plain`` and ``sb_intersect_mxu_plain``,
+bit for bit, on inputs built to stress the tie rule and the work split:
 
 * duplicated triangles (the same plane values in many slots, in one
   sub-block, across sub-blocks and across superblocks), so that many
@@ -10,6 +11,8 @@ bit, on inputs built to stress the tie rule and the work split:
   the prior's) and over a shorter ``n_real``;
 * ``n_real`` below the list length, masks of 0, empty tiles, one tile
   holding every superblock, dead rays with t_cap 0 and -0.0;
+* tiles that each hold an odd number of live sub-blocks, and tiles that
+  each hold exactly one ("mt2": a lone stage at every tile's end);
 * units of ``WALK_UNIT`` live sub-blocks (the CUDA walk's) and of 3
   (units that start and end inside pairs and tiles).
 
@@ -84,6 +87,21 @@ def _pair_list(rng, layout, nt, nsb):
         pt = np.full(nsb, 1)
         psb = rng.permutation(nsb)
         pm = np.full(nsb, 0xFF)
+    elif layout in ("odd", "single"):
+        # every tile holds an odd number of live sub-blocks / exactly one
+        keep = rng.random((nt, nsb)) < 0.6
+        keep[np.arange(nt), rng.integers(0, nsb, nt)] = True
+        pt, psb = np.nonzero(keep)
+        pm = rng.integers(0, 256, len(pt))
+        pm[rng.random(len(pt)) < 0.15] = 0
+        for t in range(nt):
+            run = np.nonzero(pt == t)[0]
+            psb[run] = rng.permutation(psb[run])
+            if layout == "single":
+                pm[run] = 0
+                pm[rng.choice(run)] = 1 << rng.integers(0, 8)
+            elif sum(bin(m).count("1") for m in pm[run]) % 2 == 0:
+                pm[run[-1]] ^= 1 << rng.integers(0, 8)   # odd count
     else:
         keep = (rng.random((nt, nsb)) < (1.0 if layout == "dense" else 0.4))
         if layout == "sparse":
@@ -142,7 +160,7 @@ def bvh_case(seed, dev="cpu"):
                 pm=pm)
 
 
-LAYOUTS = ["dense", "sparse", "one-tile", "bvh"]
+LAYOUTS = ["dense", "sparse", "one-tile", "odd", "single", "bvh"]
 
 
 def make_case(layout, dev="cpu"):
@@ -158,8 +176,10 @@ def passes(case):
 
 
 def plain(form, case, n_real, prior):
-    fn = si.sb_intersect_plain if form == "mt" else si.sb_intersect_mxu_plain
-    pl = case["planes"] if form == "mt" else case["coef"]
+    """The plain version of ``form`` ("mt2" computes the "mt" function)."""
+    mxu = form == "mxu"
+    fn = si.sb_intersect_mxu_plain if mxu else si.sb_intersect_plain
+    pl = case["coef"] if mxu else case["planes"]
     n = torch.as_tensor(n_real, dtype=torch.int32,
                         device=case["rays"].device)
     return fn(case["pt"], case["psb"], case["pm"], n, case["rays"], pl,
@@ -167,11 +187,11 @@ def plain(form, case, n_real, prior):
 
 
 @pytest.mark.parametrize("unit", [si.WALK_UNIT, 3])
-@pytest.mark.parametrize("form", ["mt", "mxu"])
+@pytest.mark.parametrize("form", ["mt", "mxu", "mt2"])
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_walk_emulation_equals_plain(layout, form, unit):
     case = make_case(layout)
-    pl = case["planes"] if form == "mt" else case["coef"]
+    pl = case["coef"] if form == "mxu" else case["planes"]
     first = None
     n_ties = 0
     for n_real, prior_of in passes(case):
@@ -223,6 +243,45 @@ def _count_ties(case, out):
                 n += 1
                 break
     return n
+
+
+@pytest.mark.parametrize("unit", [si.WALK_UNIT, 3])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mt2_stages_cover_each_live_subblock_once(layout, unit):
+    """The "mt2" walk's stages (``walk_stages``) hold every live sub-block
+    of the real pairs once, in list order; a stage is one or two
+    consecutive sub-blocks of one unit and one ray tile, chain 0 then
+    chain 1, and is lone only where the next sub-block lies in another
+    unit or tile (or there is none)."""
+    case = make_case(layout)
+    pt, pm = case["pt"].tolist(), case["pm"].tolist()
+    for n_real, _ in passes(case):
+        items, chain, stage = si.walk_stages(case["pt"], case["pm"],
+                                             torch.tensor(n_real), unit)
+        live = [(p, k) for p in range(n_real) for k in range(8)
+                if pm[p] >> k & 1]
+        assert [tuple(x) for x in items.tolist()] == live
+        tile = [pt[p] for p, _ in live]
+        stages = {}
+        for i, s in enumerate(stage.tolist()):
+            stages.setdefault(s, []).append(i)
+        assert sorted(stages) == list(range(len(stages)))
+        for s, members in stages.items():
+            assert members == list(range(members[0], members[0]
+                                         + len(members)))
+            assert len(members) in (1, 2)
+            assert chain[members].tolist() == list(range(len(members)))
+            first, last = members[0], members[-1]
+            assert tile[first] == tile[last]
+            assert first // unit == last // unit
+            if len(members) == 1 and last + 1 < len(live):
+                assert ((last + 1) // unit != last // unit
+                        or tile[last + 1] != tile[last])
+        lone = [len(m) == 1 for m in stages.values()]
+        if layout == "single" and n_real == len(pt):
+            assert all(lone)            # one live sub-block per tile
+        if layout == "odd" and n_real == len(pt):
+            assert sum(lone) >= len(set(tile))  # one per tile at least
 
 
 def test_work_units_cover_the_live_subblocks():
