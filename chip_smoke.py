@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: the bench frame and the
-inverse-rendering train step on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch port: the bench frame, the
+inverse-rendering train step, the textured hall frame and the env-NEE
+frame on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -62,12 +63,28 @@ Phases (any failure exits non-zero):
                 gradients, descent, sb_intersect_mxu launched within a
                 step), the forward / backward + update split, peak memory,
                 a profile of one step, and the losses under the cornell
-                box's own vertex rate (recorded, not required).
+                box's own vertex rate (recorded, not required);
+  8. frame textured — bench.py's textured hall
+                (make_hall_scene(textured=True): 512^2 diffuse and bump
+                textures, corner-packed) under the bench configuration:
+                the frame's gates (launches 1..12, mean > 1e-2),
+                plain-version parity, ms/frame, host syncs, peak memory,
+                a profile with the texture gathers as a group of their
+                own (profiler ranges set around the fetches), the
+                textured surface step and one fetch timed at full width,
+                and the kernels against their plain versions on the three
+                inputs of its bounce-1 step;
+  9. frame env_nee — the bench frame with env_nee=True: the same gates
+                with launches 1..16 (a second shadow query a bounce),
+                and both culls, "mt" and "mt2" equal to their plain
+                versions on the four inputs of its bounce-1 step (closest
+                rounds 1 and 2, sun shadow, env shadow).
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
-JSON (all five kernels), nvidia-smi's line, and ``{"ok": true, "device":
-{...}}``.  Nothing falls back to the CPU.
+JSON (all five kernels, with their launches on each path, and every
+frame's and the step's results), nvidia-smi's line, and ``{"ok": true,
+"device": {...}}``.  Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -93,6 +110,8 @@ MEAN_BAND = (0.2, 0.4)
 KERNELS = ("block_cull", "pair_cull", "sb_intersect", "sb_intersect_mt2",
            "sb_intersect_mxu")
 MAX_LAUNCHES = 2 * BOUNCES + BOUNCES     # per frame, each kernel
+#: the same with env NEE: a second shadow query per bounce
+MAX_LAUNCHES_ENV = 2 * BOUNCES + 2 * BOUNCES
 #: the card's published peaks (H100 SXM at 700 W): fp32 outside the
 #: tensor cores, and HBM bandwidth
 FP32_PER_S, BYTES_PER_S = 67e12, 3.35e12
@@ -107,8 +126,12 @@ SLAB_OPS, MT_OPS, MXU_OPS = 23, 46, 39
 #: 2 max and 2 min across the axes)
 BOUND_OPS, REJECT_OPS = 13, 28
 TRAIN_STEPS = 8
-#: the queries of one bounce step, in order
+#: the queries of one bounce step, in order (with env NEE, and without)
 STEP_QUERIES = ("closest round 1", "closest round 2", "shadow")
+ENV_STEP_QUERIES = STEP_QUERIES + ("env shadow",)
+#: profiler ranges around the textured frame's texture fetches and the
+#: gathers inside them (chip_smoke's own wrappers, ``texture_ranges``)
+TEX_FETCH, TEX_GATHER = "texture fetch", "texture gather"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
 #: the 64-triangle cornell box
 CORNELL_KW = dict(lr=0.02, normalize_grads=True,
@@ -327,23 +350,21 @@ def first_bounce(scene, cam, cfg, dev):
     from prismarine_core_tpu_torch.models.camera import generate_rays
     from prismarine_core_tpu_torch.ops.sampling import (
         make_coherent_sample_arrays)
-    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    from prismarine_core_tpu_torch.render.integrator import (
+        initial_carry, make_bounce_step)
     gen = torch.Generator(device=dev).manual_seed(1)
     cam_s, bounce_s = make_coherent_sample_arrays(gen, cfg, block=(64, 64))
     o, d = generate_rays(cam, cfg, cam_s)
-    r = o.shape[0]
-    alive = torch.ones((r,), dtype=torch.bool, device=dev)
-    carry = (o, d, torch.ones((r, 3), device=dev),
-             torch.zeros((r, 3), device=dev), alive,
-             torch.zeros((r, 3), device=dev), torch.zeros((r, 3), device=dev))
+    carry = initial_carry(o, d)
     carry1, _ = make_bounce_step(scene, cfg)(carry, bounce_s[0])
-    return o, d, alive, carry1, bounce_s
+    return o, d, carry[4], carry1, bounce_s
 
 
-def record_step(scene, cfg, carry, samples):
+def record_step(scene, cfg, carry, samples, queries=STEP_QUERIES):
     """The arguments of every block_cull, pair_cull and sb_intersect call
-    of one bounce step at ``carry`` (on the kernels): the closest query's
-    rounds 1 and 2, then the shadow query."""
+    of one bounce step at ``carry`` (on the kernels), one per query of
+    ``queries``: the closest query's rounds 1 and 2, the shadow query and,
+    with env NEE, the env shadow query."""
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
     from prismarine_core_tpu_torch.render.integrator import make_bounce_step
@@ -362,7 +383,7 @@ def record_step(scene, cfg, carry, samples):
         make_bounce_step(scene, cfg)(carry, samples)
     finally:
         pk.block_cull, pk.pair_cull, pk.sb_intersect = saved
-    require(all(len(v) == len(STEP_QUERIES) for v in calls.values()),
+    require(all(len(v) == len(queries) for v in calls.values()),
             f"kernel calls in one bounce step: "
             f"{ {k: len(v) for k, v in calls.items()} }")
     return calls
@@ -517,37 +538,41 @@ def phase_kernels(scene, cam, cfg, dev):
     return rows, step_inputs(scene, cfg, carry1, bounce_s[1])
 
 
-def step_inputs(scene, cfg, carry, samples):
-    """Both cull kernels and sb_intersect_mt2 against their plain versions
-    on every input one bounce step gives them (the step at ``carry``: the
-    closest query's rounds 1 and 2, then the shadow query), recorded while
-    the step runs on the kernels: equal exactly ("mt2" also equal to
-    "mt"), with survivor shares, the "mt2" walk's stages and kernel times.
-    Returns each kernel's largest |kernel - plain|."""
+def step_inputs(scene, cfg, carry, samples, queries=STEP_QUERIES,
+                tag="bounce1"):
+    """Both cull kernels, sb_intersect and sb_intersect_mt2 against their
+    plain versions on every input one bounce step gives them (the step at
+    ``carry``, one input per query of ``queries``), recorded while the
+    step runs on the kernels: equal exactly ("mt2" also equal to "mt"),
+    with pairs, live sub-blocks, survivor shares, the "mt2" walk's stages
+    and kernel times.  Returns each kernel's largest |kernel - plain|."""
     import torch
     from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
     from prismarine_core_tpu_torch.utils.config import INF_DIST
-    calls = record_step(scene, cfg, carry, samples)
+    calls = record_step(scene, cfg, carry, samples, queries)
     errs = {}
-    for label, bargs, pargs, sargs in zip(STEP_QUERIES, calls["block_cull"],
+    for label, bargs, pargs, sargs in zip(queries, calls["block_cull"],
                                           calls["pair_cull"],
                                           calls["sb_intersect"]):
         rays, rows, n_live = bargs
         tn, tn_p = cull.block_cull(*bargs), cull.block_cull_plain(*bargs)
-        require(torch.equal(tn, tn_p), f"bounce 1 {label}: block_cull != "
+        require(torch.equal(tn, tn_p), f"{tag} {label}: block_cull != "
                 "plain")
         pm, pm_p = cull.pair_cull(*pargs), cull.pair_cull_plain(*pargs)
-        require(torch.equal(pm, pm_p), f"bounce 1 {label}: pair_cull != "
+        require(torch.equal(pm, pm_p), f"{tag} {label}: pair_cull != "
                 "plain")
         mt = si.sb_intersect(*sargs)
         mt2 = si.sb_intersect_mt2(*sargs)
         ref = si.sb_intersect_plain(*sargs, chunk=128)
-        require(all(map(torch.equal, mt2, ref)), f"bounce 1 {label}: "
+        require(all(map(torch.equal, mt, ref)), f"{tag} {label}: "
+                "sb_intersect (t, slot) != plain")
+        require(all(map(torch.equal, mt2, ref)), f"{tag} {label}: "
                 "sb_intersect_mt2 (t, slot) != plain")
-        require(all(map(torch.equal, mt2, mt)), f"bounce 1 {label}: "
+        require(all(map(torch.equal, mt2, mt)), f"{tag} {label}: "
                 "sb_intersect_mt2 (t, slot) != sb_intersect")
         for k, e in (("block_cull", (tn - tn_p).abs().max().item()),
                      ("pair_cull", (pm - pm_p).abs().max().item()),
+                     ("sb_intersect", (mt[0] - ref[0]).abs().max().item()),
                      ("sb_intersect_mt2",
                       (mt2[0] - ref[0]).abs().max().item())):
             errs[k] = max(errs.get(k, 0.0), e)
@@ -558,7 +583,7 @@ def step_inputs(scene, cfg, carry, samples):
         ms_mt = cuda_ms(lambda: si.sb_intersect(*sargs), 5)
         ms_mt2 = cuda_ms(lambda: si.sb_intersect_mt2(*sargs), 5)
         n_sub = int(si.live_counts(pm, n_real).sum())
-        log(f"[kernels] bounce1 {label}: n_live {int(n_live)}, "
+        log(f"[kernels] {tag} {label}: n_live {int(n_live)}, "
             f"{int((tn < INF_DIST).sum())} passing (tile, box) entries, "
             f"{int(n_real)} pairs; survivors block_cull "
             f"{work['block_cull']['share']:.4f}, pair_cull "
@@ -604,7 +629,13 @@ def plain_versions():
         pk.block_cull, pk.pair_cull, pk.sb_intersect = saved
 
 
-def phase_frame(scene, cam, cfg, dev, n_frames=3):
+def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
+                max_launches=MAX_LAUNCHES, mean_band=MEAN_BAND, ranges=None):
+    """One frame of ``cfg`` on ``scene`` with every launch counter read
+    around it (each "mt"-path kernel 1..``max_launches`` times), finite,
+    its mean in ``mean_band``; host syncs, ``n_frames`` timed frames
+    (equal to the first), peak memory and one profiled frame (under the
+    profiler ranges that ``ranges()`` opens, if given)."""
     import torch
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.ops.sampling import (
@@ -625,18 +656,20 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3):
     first_s = time.perf_counter() - t0
     launches = read()
     compactions = pk.compact_pairs.host_syncs - syncs0
-    log(f"[frame] first frame {first_s:.3f} s; launches {launches}; "
+    log(f"[{tag}] first frame {first_s:.3f} s; launches {launches}; "
         f"{compactions} pair compactions")
     for k in ("block_cull", "pair_cull", "sb_intersect"):
-        require(0 < launches[k] <= MAX_LAUNCHES, f"{k}: {launches[k]} "
-                "launches")
-    require(img.shape == (H, W, 3), f"image shape {tuple(img.shape)}")
-    require(bool(torch.isfinite(img).all()), "non-finite image")
+        require(0 < launches[k] <= max_launches, f"{tag} {k}: "
+                f"{launches[k]} launches")
+    require(img.shape == (H, W, 3), f"{tag} image shape "
+            f"{tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), f"{tag}: non-finite image")
     mean = float(img.mean())
-    require(MEAN_BAND[0] <= mean <= MEAN_BAND[1], f"image mean {mean}")
+    require(mean_band[0] <= mean <= mean_band[1], f"{tag} image mean "
+            f"{mean}")
     stats = stats.cpu()
     rays = int(stats[:, 0].sum() + stats[:, 4].sum())
-    log(f"[frame] mean {mean:.6f}; stats {stats.tolist()}")
+    log(f"[{tag}] mean {mean:.6f}; stats {stats.tolist()}")
 
     # every host sync torch detects over one frame, less what switching
     # the detection on and off reports by itself
@@ -652,25 +685,31 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(dev)
-    require(torch.equal(out, img), "frames differ between runs")
+    require(torch.equal(out, img), f"{tag}: frames differ between runs")
     ms = 1e3 * sum(times) / n_frames
     result = dict(ms_per_frame=ms, frame_ms=[1e3 * t for t in times],
                   live_rays=rays, mrays_per_s=rays / (ms * 1e3),
                   host_syncs_per_frame=syncs,
                   compactions_per_frame=compactions,
-                  peak_mem_bytes=peak, mean=mean, launches=launches)
-    log(f"[frame] {ms:.3f} ms/frame over {n_frames} frames "
+                  peak_mem_bytes=peak, mean=mean, stats=stats.tolist(),
+                  launches=launches)
+    log(f"[{tag}] {ms:.3f} ms/frame over {n_frames} frames "
         f"({', '.join(f'{1e3 * t:.3f}' for t in times)}); {rays} live rays "
         f"-> {rays / (ms * 1e3):.3f} Mrays/s; {syncs} host syncs per frame "
         f"({compactions} of them pair compactions); peak memory "
         f"{peak / 2**20:.1f} MiB")
-    log(f"[frame] host syncs by source line: {dict(sources.most_common())}")
-    result["profile"] = profile_once(lambda: render_with_samples(
-        scene, cam, cfg, cam_s, bounce_s), "frame")
+    log(f"[{tag}] host syncs by source line: "
+        f"{dict(sources.most_common())}")
+    with ranges() if ranges else contextlib.nullcontext():
+        result["profile"] = profile_once(lambda: render_with_samples(
+            scene, cam, cfg, cam_s, bounce_s), tag,
+            (TEX_FETCH, TEX_GATHER) if ranges else ())
     return img, result, (cam_s, bounce_s)
 
 
-def phase_parity(scene, cam, cfg, img, samples):
+def phase_parity(scene, cam, cfg, img, samples, tag="parity"):
+    """The same frame on the kernels' plain versions: >= 98% of pixels
+    ``isclose(rtol=1e-3, atol=1e-3)`` and the mean within 0.5%."""
     import numpy as np
     import torch
     from prismarine_core_tpu_torch.render.integrator import (
@@ -681,12 +720,15 @@ def phase_parity(scene, cam, cfg, img, samples):
     torch.cuda.synchronize()
     a, b = img.cpu().numpy(), ref.cpu().numpy()
     close = np.isclose(a, b, rtol=1e-3, atol=1e-3).all(axis=-1).mean()
-    log(f"[parity] plain-version frame in {time.perf_counter() - t0:.1f} "
+    same = bool(np.array_equal(a, b))
+    log(f"[{tag}] plain-version frame in {time.perf_counter() - t0:.1f} "
         f"s: pixel parity {close:.6f}, mean {a.mean():.6f} vs "
-        f"{b.mean():.6f}, bit-identical {bool(np.array_equal(a, b))}")
-    require(close >= 0.98, f"pixel parity {close}")
+        f"{b.mean():.6f}, bit-identical {same}")
+    require(close >= 0.98, f"{tag}: pixel parity {close}")
     require(abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean()),
-            f"image mean {a.mean()} vs plain {b.mean()}")
+            f"{tag}: image mean {a.mean()} vs plain {b.mean()}")
+    return dict(pixel_parity=float(close), plain_mean=float(b.mean()),
+                bit_identical=same)
 
 
 def zero_launches():
@@ -731,6 +773,144 @@ def phase_frame_mt2(scene, cam, cfg, img, samples, n_frames=3):
                 launches=launches, profile=prof)
 
 
+@contextlib.contextmanager
+def texture_ranges():
+    """Profiler ranges around the textured frame's fetches (TEX_FETCH:
+    the integrator's ``sample_bilinear`` / ``sample_bicubic``) and the row
+    gathers inside them (TEX_GATHER: the texel rows and the size table),
+    by wrappers set in the functions' place for one profiled frame."""
+    from torch.profiler import record_function
+    from prismarine_core_tpu_torch.models import textures as tx
+    from prismarine_core_tpu_torch.render import integrator as it
+
+    def ranged(name, fn):
+        def run(*args):
+            with record_function(name):
+                return fn(*args)
+        return run
+    saved = (it.sample_bilinear, it.sample_bicubic, tx._texel_rows,
+             tx._tex_size)
+    it.sample_bilinear = ranged(TEX_FETCH, saved[0])
+    it.sample_bicubic = ranged(TEX_FETCH, saved[1])
+    tx._texel_rows = ranged(TEX_GATHER, saved[2])
+    tx._tex_size = ranged(TEX_GATHER, saved[3])
+    try:
+        yield
+    finally:
+        (it.sample_bilinear, it.sample_bicubic, tx._texel_rows,
+         tx._tex_size) = saved
+
+
+def fetch_times(scene, stub_scene, cam, cfg, dev):
+    """The textured surface step at full width, on the camera rays' hits
+    (CUDA events, 10 launches after a warm-up): ``_interpolate_surface``
+    on the textured hall and on the stub hall (the same geometry), one
+    packed diffuse fetch (``sample_bilinear``), and that fetch's quad-row
+    gather alone beside its bytes bound (each row read and written once,
+    the index read once)."""
+    import torch
+    from prismarine_core_tpu_torch.models import textures as tx
+    from prismarine_core_tpu_torch.models.camera import generate_rays
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    from prismarine_core_tpu_torch.render.integrator import (
+        _interpolate_surface, closest_hit)
+    from prismarine_core_tpu_torch.utils import math as pm
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cam_s, _ = make_coherent_sample_arrays(gen, cfg, block=(64, 64))
+    o, d = generate_rays(cam, cfg, cam_s)
+    hit = closest_hit(scene, o, d, cfg,
+                      t_cap=torch.full(o.shape[:1], INF_DIST, device=dev))
+    kinds = scene.materials.kinds_bound
+    surf = _interpolate_surface(scene, hit, cfg, kinds)
+    tri = torch.clamp(hit.tri, min=0).long()
+    tid = pm.take_rows(scene.materials.tex_diffuse,
+                       scene.triangles.mat_id[tri].long())
+    uv = surf["uv"]
+    stack = scene.textures
+    # the fetch's own texel index (sample_bilinear's formula)
+    n, h, w, _ = stack.quad.shape
+    tid_c = torch.clamp(tid, 0, n - 1).long()
+    wi, hi = tx._tex_size(stack, tid_c)
+    x0 = torch.floor(torch.remainder(uv[:, 0], 1.0) * wi - 0.5)
+    y0 = torch.floor(torch.remainder(uv[:, 1], 1.0) * hi - 0.5)
+    flat = ((tid_c * h + torch.remainder(y0.to(torch.int32), hi).long())
+            * w + torch.remainder(x0.to(torch.int32), wi).long())
+    rows = stack.quad.reshape(-1, 16)
+    out = dict(
+        surface_textured_ms=cuda_ms(
+            lambda: _interpolate_surface(scene, hit, cfg, kinds), 10),
+        surface_stub_ms=cuda_ms(
+            lambda: _interpolate_surface(stub_scene, hit, cfg, None), 10),
+        fetch_ms=cuda_ms(lambda: tx.sample_bilinear(stack, tid, uv), 10),
+        quad_gather_ms=cuda_ms(lambda: pm.take_rows(rows, flat), 10),
+        quad_gather_bound_ms=bound(0, 2 * flat.numel() * 64
+                                   + flat.numel() * 8)[0],
+        lanes=int(tid.numel()), textured_lanes=int((tid >= 0).sum()))
+    log(f"[fetch] {out['lanes']} camera-ray hits ({out['textured_lanes']} "
+        f"on a diffuse texture): _interpolate_surface textured "
+        f"{out['surface_textured_ms']:.4f} ms, stub "
+        f"{out['surface_stub_ms']:.4f} ms; one packed bilinear fetch "
+        f"{out['fetch_ms']:.4f} ms; its quad-row gather alone "
+        f"{out['quad_gather_ms']:.4f} ms against a bytes bound of "
+        f"{out['quad_gather_bound_ms']:.4f} ms")
+    return out
+
+
+def phase_textured(bench_scene, cam, cfg, dev, target_tris=100_000):
+    """bench.py's textured hall frame: ``make_hall_scene(textured=True)``
+    (512^2 diffuse and bump textures, corner-packed), the bench sky,
+    camera and config; the frame's gates (mean > 1e-2), its plain-version
+    parity, a profile with the texture gathers as a group, the fetch
+    times, and the kernels against their plain versions on the three
+    inputs of the textured bounce-1 step."""
+    import torch
+    from prismarine_core_tpu_torch.models.procedural import (
+        make_hall_scene, make_sky_environment)
+    t0 = time.perf_counter()
+    scene = make_hall_scene(target_tris=target_tris, textured=True,
+                            device=dev)
+    scene = dataclasses.replace(
+        scene, environment=make_sky_environment(resolution=128, device=dev))
+    torch.cuda.synchronize()
+    st = scene.textures
+    log(f"[scene textured] {int(scene.triangles.num_valid())} tris, "
+        f"textures {tuple(st.data.shape)} + quads "
+        f"{st.quad.numel() * 4 / 2**20:.1f} MiB, kinds bound "
+        f"{scene.materials.kinds_bound}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    img, res, samples = phase_frame(scene, cam, cfg, dev,
+                                    tag="frame textured",
+                                    mean_band=(1e-2, math.inf),
+                                    ranges=texture_ranges)
+    res["parity"] = phase_parity(scene, cam, cfg, img, samples,
+                                 tag="parity textured")
+    res["fetch"] = fetch_times(scene, bench_scene, cam, cfg, dev)
+    _, _, _, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
+    res["step_errs"] = step_inputs(scene, cfg, carry1, bounce_s[1],
+                                   tag="textured bounce1")
+    return res
+
+
+def phase_env_nee(scene, cam, cfg, dev):
+    """The bench frame with ``env_nee=True``: the frame's gates with up to
+    16 launches (mean > 1e-2), its plain-version parity, and both culls,
+    "mt" and "mt2" against their plain versions on the four inputs of one
+    bounce-1 step (closest rounds 1 and 2, sun shadow, env shadow)."""
+    cfg_e = cfg.replace(env_nee=True)
+    img, res, samples = phase_frame(scene, cam, cfg_e, dev,
+                                    tag="frame env_nee",
+                                    max_launches=MAX_LAUNCHES_ENV,
+                                    mean_band=(1e-2, math.inf))
+    res["parity"] = phase_parity(scene, cam, cfg_e, img, samples,
+                                 tag="parity env_nee")
+    _, _, _, carry1, bounce_s = first_bounce(scene, cam, cfg_e, dev)
+    res["step_errs"] = step_inputs(scene, cfg_e, carry1, bounce_s[1],
+                                   ENV_STEP_QUERIES, tag="env_nee bounce1")
+    return res
+
+
 def _cos(a, b):
     import torch
     a, b = a.double().reshape(-1), b.double().reshape(-1)
@@ -753,10 +933,13 @@ OP_GROUPS = (("port kernels", ("cull_kernel", "sb_intersect")),
              ("elementwise/reduction glue", ("",)))
 
 
-def profile_once(fn, tag):
+def profile_once(fn, tag, ranges=()):
     """``fn()`` once under torch.profiler (CPU + CUDA activities): wall
     ms, device busy ms (the sum of device ops' self times), the idle
-    share, device time by OP_GROUPS and the top ops by device time."""
+    share, device time by OP_GROUPS and the top ops by device time.
+    ``ranges``: names of ``record_function`` ranges open around parts of
+    ``fn``; each one's device time (its kernels') is logged, and the
+    TEX_GATHER range's is a group of its own, taken out of "gather"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -770,8 +953,18 @@ def profile_once(fn, tag):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    ops = [e for e in averages
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.key not in ranges]
+    range_ms = {}
+    for name in ranges:
+        rows = [e for e in averages if e.key == name
+                and e.device_type == torch.autograd.DeviceType.CPU]
+        range_ms[name] = (sum(e.count for e in rows),
+                          sum(getattr(e, "device_time_total",
+                                      getattr(e, "cuda_time_total", 0))
+                              for e in rows) / 1e3)
     ops.sort(key=dev_us, reverse=True)
     rows = [(e.key[:90], e.count, dev_us(e) / 1e3) for e in ops]
     busy = sum(r[2] for r in rows)
@@ -781,6 +974,10 @@ def profile_once(fn, tag):
                  if any(f in name.lower() for f in frags))
         groups[g][0] += ms
         groups[g][1] += n
+    if range_ms.get(TEX_GATHER, (0, 0.0))[1] > 0:
+        n, ms = range_ms[TEX_GATHER]
+        groups["gather"][0] -= ms
+        groups["texture gathers"] = [ms, n]
     log(f"[{tag} profile] wall {wall:.3f} ms, device busy {busy:.3f} ms, "
         f"idle share {1 - busy / wall:.4f}, {sum(r[1] for r in rows)} "
         "device ops")
@@ -800,10 +997,16 @@ def profile_once(fn, tag):
     log(f"[{tag} profile] walk kernels: "
         f"{ {k: (n, round(ms, 4)) for k, (n, ms) in walk_ms.items()} }, "
         f"{sum(ms for _, ms in walk_ms.values()):.4f} ms")
-    return dict(wall_ms=wall, busy_ms=busy,
+    for name, (n, ms) in range_ms.items():
+        log(f"[{tag} profile] range {name!r}: {n} calls, "
+            + (f"{ms:.4f} ms of device time" if ms > 0 else
+               "device time not measured (the profiler gave the range "
+               "no kernels)"))
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
                 groups_ms={g: v[0] for g, v in groups.items()},
                 cull_ms=sum(ms for _, ms in cull_ms.values()),
-                walk_ms=sum(ms for _, ms in walk_ms.values()))
+                walk_ms=sum(ms for _, ms in walk_ms.values()),
+                ranges_ms={k: v[1] for k, v in range_ms.items()})
 
 
 def launch_gaps(prof) -> str:
@@ -813,7 +1016,8 @@ def launch_gaps(prof) -> str:
     import statistics
     import torch
     ev = sorted((e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name not in (TEX_FETCH, TEX_GATHER)),
                 key=lambda e: e.time_range.start)
     gaps = {"cull": [], "all": []}
     for prev, e in zip(ev, ev[1:]):
@@ -927,6 +1131,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from prismarine_core_tpu_torch import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -954,6 +1159,11 @@ def main() -> int:
     phase_parity(scene, cam, cfg, img, samples)
     frame2 = phase_frame_mt2(scene, cam, cfg, img, samples)
     train = phase_train(scene, cam, cfg, dev, img, samples)
+    textured = phase_textured(scene, cam, cfg, dev)
+    env = phase_env_nee(scene, cam, cfg, dev)
+    step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
+                        env["step_errs"].get(k, 0.0))
+                 for k, v in step_errs.items()}
 
     # each kernel's launches on its path: the frame's for the "mt" path
     # kernels, the "mt2" frame's and one train step's for the other forms
@@ -978,7 +1188,9 @@ def main() -> int:
          "replaces": replaces[k][1], "launches": launches[k],
          "launches_by_path": {"frame_mt": frame["launches"][k],
                               "frame_mt2": frame2["launches"][k],
-                              "train_step_mxu": train["launches"][k]},
+                              "train_step_mxu": train["launches"][k],
+                              "frame_textured": textured["launches"][k],
+                              "frame_env_nee": env["launches"][k]},
          "max_abs_err": max([ktimes[s][k][2] for s in ktimes]
                             + [step_errs.get(k, 0.0)]),
          "ms": ktimes["bounce1"][k][0], "plain_ms": ktimes["bounce1"][k][1],
@@ -989,7 +1201,13 @@ def main() -> int:
         "frame": {k: v for k, v in frame.items() if k != "launches"},
         "frame_mt2": {k: v for k, v in frame2.items() if k != "launches"},
         "train": {k: v for k, v in train.items() if k != "launches"},
+        "frame_textured": {k: v for k, v in textured.items()
+                           if k not in ("launches", "step_errs")},
+        "frame_env_nee": {k: v for k, v in env.items()
+                          if k not in ("launches", "step_errs")},
         "card": smi}
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
+        "s")
     log(json.dumps(table))
     log(smi)
     log(json.dumps({"ok": True, "device": {

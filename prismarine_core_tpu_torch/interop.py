@@ -44,14 +44,19 @@ def _tensor_fields(cls):
     return [f.name for f in dataclasses.fields(cls)]
 
 
+#: the texture stack's arrays; ``sizes`` and ``quad`` are optional
+_TEXTURE_FIELDS = ("data", "sizes", "quad")
+
+
 def scene_from_numpy(arrays: dict, device=None) -> Scene:
     """Build the port's Scene from ``{"group.field": ndarray}``.
 
     Groups ``triangles``, ``materials``, ``lights`` and ``environment``
     are required; ``bvh`` and ``packets`` are taken when present (both or
-    neither).  ``textures.data`` must be the texture-less stub stack (a
-    single all-white texture) if given at all.  ``device`` None is the
-    CUDA card."""
+    neither).  ``textures.data``, ``textures.sizes`` and
+    ``textures.quad`` are taken when present; without them, or for a
+    single all-white texture with no size table, the stack is the
+    texture-less stub.  ``device`` None is the CUDA card."""
     device = resolve_device(device)
 
     def group(name):
@@ -65,23 +70,24 @@ def scene_from_numpy(arrays: dict, device=None) -> Scene:
         return cls(**kw)
 
     known = {f"{g}.{f}" for g, c in _GROUPS.items()
-             for f in _tensor_fields(c)} | {"textures.data"}
+             for f in _tensor_fields(c)} | {
+        f"textures.{f}" for f in _TEXTURE_FIELDS}
     extra = sorted(set(arrays) - known)
     if extra:
-        raise NotImplementedError(
-            f"arrays {extra} are outside the ported scene state (textures "
-            "beyond the stub stack: ROADMAP queue 1, 'Textures and env "
-            "NEE')")
-    textures = TextureStack.empty(device=device)
-    if "textures.data" in arrays:
-        data = np.asarray(arrays["textures.data"])
-        if data.shape[0] != 1 or not (data == 1.0).all():
-            raise NotImplementedError(
-                "only the texture-less stub stack is ported (ROADMAP "
-                "queue 1, 'Textures and env NEE')")
-        textures = TextureStack(
-            data=torch.tensor(data, dtype=torch.float32, device=device),
-            stub=True)
+        raise KeyError(f"arrays {extra} are not part of the scene state")
+    tex = {f: torch.tensor(np.asarray(arrays[f"textures.{f}"]),
+                           device=device)
+           for f in _TEXTURE_FIELDS if f"textures.{f}" in arrays}
+    if "data" not in tex and tex:
+        raise KeyError("textures.sizes or textures.quad without "
+                       "textures.data")
+    if "data" not in tex:
+        textures = TextureStack.empty(device=device)
+    else:
+        data = tex["data"]
+        stub = ("sizes" not in tex and "quad" not in tex
+                and data.shape[0] == 1 and bool((data == 1.0).all()))
+        textures = TextureStack(**tex, stub=stub)
     has_accel = ["bvh.lo" in arrays, "packets.planes" in arrays]
     if any(has_accel) and not all(has_accel):
         raise ValueError("bvh and packets come together")
@@ -102,7 +108,10 @@ def scene_to_numpy(scene: Scene) -> dict:
             continue
         for f in _tensor_fields(type(obj)):
             out[f"{name}.{f}"] = getattr(obj, f).detach().cpu().numpy()
-    out["textures.data"] = scene.textures.data.detach().cpu().numpy()
+    for f in _TEXTURE_FIELDS:
+        t = getattr(scene.textures, f)
+        if t is not None:
+            out[f"textures.{f}"] = t.detach().cpu().numpy()
     return out
 
 

@@ -37,10 +37,11 @@ class MaterialTable:
     def kinds_bound(self) -> tuple:
         """Per kind (diffuse, specular, emissive, bump): does any
         material bind a texture?  Computed from the current ids, so a
-        replaced id array never leaves a stale flag."""
-        return tuple(bool((a >= 0).any()) for a in
-                     (self.tex_diffuse, self.tex_specular,
-                      self.tex_emissive, self.tex_bump))
+        replaced id array never leaves a stale flag; one host sync."""
+        return tuple(torch.stack([
+            (a >= 0).any() for a in (self.tex_diffuse, self.tex_specular,
+                                     self.tex_emissive, self.tex_bump)
+        ]).tolist())
 
     def lookup(self, mat_id: torch.Tensor) -> "MaterialTable":
         """Gather per-ray material records (mat_id: int64[R])."""

@@ -1,9 +1,8 @@
 """Procedural benchmark scenes: the colonnaded hall and the HDR sky.
 
-The counterpart of ``prismarine_core_tpu.models.procedural``.  Geometry
-and sky are built in numpy from the same seeds and formulas, so the
-arrays equal the JAX package's exactly.  The textured hall variant is
-ROADMAP queue 1, 'Textures and env NEE'.
+The counterpart of ``prismarine_core_tpu.models.procedural``.  Geometry,
+textures and sky are built in numpy from the same seeds, formulas and
+draw order, so the arrays equal the JAX package's exactly.
 """
 
 from __future__ import annotations
@@ -15,7 +14,8 @@ from prismarine_core_tpu_torch.models.geometry import (
 from prismarine_core_tpu_torch.models.lights import SphereLights
 from prismarine_core_tpu_torch.models.materials import MaterialTable
 from prismarine_core_tpu_torch.models.scene import Scene
-from prismarine_core_tpu_torch.models.textures import Environment
+from prismarine_core_tpu_torch.models.textures import (
+    Environment, TextureStack)
 from prismarine_core_tpu_torch.utils.device import resolve_device
 
 
@@ -62,16 +62,67 @@ def _sphere_mesh(center, radius, rows, cols, mat_id):
     return verts, faces, np.full(len(faces), mat_id, np.int32)
 
 
+def _procedural_textures(resolution: int = 512, seed: int = 7):
+    """Deterministic diffuse + bump texture set of the textured hall
+    (value-noise octaves, numpy): [checker floor, wall stone, column
+    marble, tangent-space normal map]."""
+    rng = np.random.default_rng(seed)
+    n = resolution
+
+    def fbm(octaves=5, base=8):
+        acc = np.zeros((n, n))
+        amp = 1.0
+        for o in range(octaves):
+            cells = base * (2 ** o)
+            g = rng.standard_normal((cells + 1, cells + 1))
+            g[-1, :] = g[0, :]
+            g[:, -1] = g[:, 0]                   # tileable
+            yy = np.linspace(0, cells, n, endpoint=False)
+            y0 = yy.astype(int)
+            fy = (yy - y0)[:, None]
+            fx = (yy - y0)[None, :]
+            a = g[np.ix_(y0, y0)]
+            b = g[np.ix_(y0, y0 + 1)]
+            c = g[np.ix_(y0 + 1, y0)]
+            d = g[np.ix_(y0 + 1, y0 + 1)]
+            acc += amp * ((a * (1 - fx) + b * fx) * (1 - fy)
+                          + (c * (1 - fx) + d * fx) * fy)
+            amp *= 0.5
+        acc -= acc.min()
+        return acc / max(acc.max(), 1e-6)
+
+    y = np.arange(n)
+    checker = ((y[:, None] // (n // 8) + y[None, :] // (n // 8)) % 2
+               ).astype(np.float64)
+    floor = (0.35 + 0.3 * checker + 0.2 * fbm())[..., None] \
+        * np.array([1.0, 0.93, 0.82])
+    wall = (0.45 + 0.4 * fbm(base=4))[..., None] \
+        * np.array([0.95, 0.9, 0.85])
+    marble = (0.5 + 0.45 * np.abs(
+        np.sin(6.0 * np.pi * (y[None, :] / n + 0.6 * fbm(base=2)))
+    ))[..., None] * np.array([0.9, 0.88, 0.85])
+
+    height = fbm(base=6)
+    dhdx = np.roll(height, -1, 1) - np.roll(height, 1, 1)
+    dhdy = np.roll(height, -1, 0) - np.roll(height, 1, 0)
+    nrm = np.stack([-dhdx * 4.0, -dhdy * 4.0, np.ones_like(height)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    bump = nrm * 0.5 + 0.5
+    return [floor.astype(np.float32), wall.astype(np.float32),
+            marble.astype(np.float32), bump.astype(np.float32)]
+
+
 def make_hall_scene(target_tris: int = 100_000, seed: int = 0,
                     capacity: int | None = None, build_bvh: bool = True,
-                    textured: bool = False, device=None) -> Scene:
+                    textured: bool = False, texture_resolution: int = 512,
+                    pack_corners: bool = True, device=None) -> Scene:
     """Colonnaded hall: floor + walls, two rows of segmented columns,
     sphere clutter — scaled to roughly ``target_tris`` triangles.
-    ``device`` None is the CUDA card."""
-    if textured:
-        raise NotImplementedError(
-            "the textured hall is not ported yet (ROADMAP queue 1, "
-            "'Textures and env NEE')")
+
+    ``textured=True`` adds procedural diffuse and tangent-space bump
+    textures (``texture_resolution`` square, corner-packed unless
+    ``pack_corners`` is False) on floor, walls and columns, with oblique
+    planar UVs.  ``device`` None is the CUDA card."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     parts = []
@@ -110,20 +161,41 @@ def make_hall_scene(target_tris: int = 100_000, seed: int = 0,
                                   2 * rows, mat_id=3 + int(rng.integers(3))))
 
     verts, faces, mids = merge_meshes(parts)
+    texcoords = None
+    if textured:
+        # oblique planar projection: non-degenerate uv derivatives on
+        # every wall, floor and column orientation from one map
+        texcoords = np.stack(
+            [0.25 * (verts[:, 0] + 0.3 * verts[:, 2]),
+             0.25 * (verts[:, 1] + 0.7 * verts[:, 2])],
+            axis=1).astype(np.float32)
     soup = TriangleSoup.from_arrays(verts, faces, mat_ids=mids,
-                                    capacity=capacity, device=device)
+                                    texcoords=texcoords, capacity=capacity,
+                                    device=device)
+    bump = {"tex_bump": 3} if textured else {}
+
+    def tex(i):
+        return {"tex_diffuse": i, **bump} if textured else {}
+
     mats = MaterialTable.build([
-        {"diffuse": (0.55, 0.5, 0.45), "roughness": 0.6},        # floor
-        {"diffuse": (0.6, 0.55, 0.5)},                           # walls
-        {"diffuse": (0.7, 0.68, 0.62), "roughness": 0.4},        # columns
+        {"diffuse": (0.55, 0.5, 0.45), "roughness": 0.6, **tex(0)},  # floor
+        {"diffuse": (0.6, 0.55, 0.5), **tex(1)},                     # walls
+        {"diffuse": (0.7, 0.68, 0.62), "roughness": 0.4, **tex(2)},  # columns
         {"diffuse": (0.7, 0.3, 0.25), "roughness": 0.3, "metallic": 0.1},
         {"diffuse": (0.3, 0.5, 0.7), "roughness": 0.2, "metallic": 0.6},
         {"diffuse": (0.8, 0.75, 0.3), "roughness": 0.1, "metallic": 0.9},
     ], device=device)
+    textures = None
+    if textured:
+        textures = TextureStack.from_images(
+            _procedural_textures(texture_resolution),
+            resolution=texture_resolution, device=device)
+        if pack_corners:
+            textures = textures.with_packed_corners()
     return Scene.assemble(
         soup, mats, SphereLights.suns(device=device),
         Environment.constant((0.35, 0.45, 0.65), device=device),
-        build_bvh=build_bvh)
+        textures=textures, build_bvh=build_bvh)
 
 
 def make_sky_environment(resolution: int = 256, sun_dir=(0.5, 0.6, 0.3),

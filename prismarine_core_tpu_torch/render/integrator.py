@@ -10,7 +10,11 @@ Light transport (as in the JAX package):
   * with prob 1 - alpha: pass through (refract, TIR falls back to mirror)
   * else with prob spca = |specular color|: glossy reflection
   * else: cosine diffuse bounce, plus one NEE shadow ray toward a sphere
-    light chosen by the reserved uniform.
+    light chosen by the reserved uniform, and with ``cfg.env_nee`` one
+    toward the environment (balance-heuristic MIS with the miss pickup).
+
+Textured scenes modulate albedo, emissive and the specular terms by their
+texture fetches and perturb the shading normal by the bump map.
 
 The port runs ``intersector="brute"`` (the oracle) and ``"pallas"`` (the
 packet query on the hand-written kernels); ``check_supported`` raises for
@@ -19,9 +23,13 @@ knobs outside that slice.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from prismarine_core_tpu_torch.models.camera import Camera, generate_rays
+from prismarine_core_tpu_torch.models.textures import (
+    env_pdf, sample_bicubic, sample_bilinear, sample_env_direction)
 from prismarine_core_tpu_torch.ops import sampling as smp
 from prismarine_core_tpu_torch.ops.intersect import (
     Hit, intersect_closest_brute, intersect_sphere, occluded_brute)
@@ -84,14 +92,13 @@ def occluded(scene, o, d, t_max, cfg: RenderConfig, order=None):
     raise AssertionError("unreachable")
 
 
-def _interpolate_surface(scene, hit: Hit):
+def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None):
     """Per-ray surface fields at the hit (garbage where missed — callers
-    mask): shading/geometric normals, material record.  Texture-less
-    scenes only (the stub stack)."""
-    if not getattr(scene.textures, "stub", False):
-        raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP queue 1, "
-            "'Textures and env NEE')")
+    mask): shading/geometric normals, uv, material record with its
+    texture modulations.  ``kinds``: the materials' ``kinds_bound``
+    (needed for a textured scene); a kind no material binds skips its
+    whole fetch and filter chain, and the texture-less stub stack skips
+    uv, the tangent frame and every fetch."""
     tri = torch.clamp(hit.tri, min=0).long()
     soup = scene.triangles
     w = (1.0 - hit.u - hit.v)[:, None]
@@ -100,21 +107,64 @@ def _interpolate_surface(scene, hit: Hit):
     ns = pm.normalize(w * soup.n0[tri] + uu * soup.n1[tri]
                       + vv * soup.n2[tri])
     v0 = pm.take_rows(soup.v0, tri)
-    ng = pm.normalize(pm.cross(pm.take_rows(soup.v1, tri) - v0,
-                               pm.take_rows(soup.v2, tri) - v0))
+    e1 = pm.take_rows(soup.v1, tri) - v0
+    e2 = pm.take_rows(soup.v2, tri) - v0
+    ng = pm.normalize(pm.cross(e1, e2))
     # geometric normal where the shading normal is degenerate
     ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
     mat = scene.materials.lookup(soup.mat_id[tri].long())
+    albedo4 = mat.diffuse
+    rough, metal = mat.specular[:, 1], mat.specular[:, 2]
+    emissive = mat.emissive[:, :3]
+    if getattr(scene.textures, "stub", False):
+        # uv only feeds texture fetches: zeros on texture-less scenes
+        uv = torch.zeros((tri.shape[0], 2), dtype=torch.float32,
+                         device=tri.device)
+    else:
+        sample_tex = (sample_bicubic if cfg.texture_filter == "bicubic"
+                      else sample_bilinear)
+        stack = scene.textures
+        t0 = pm.take_rows(soup.t0, tri)
+        t1 = pm.take_rows(soup.t1, tri)
+        t2 = pm.take_rows(soup.t2, tri)
+        uv = w * t0 + uu * t1 + vv * t2
+        if kinds[3]:
+            # tangent-space normal mapping: the tangent from the uv
+            # derivatives, then the bump texture's normal in that frame
+            duv1 = t1 - t0
+            duv2 = t2 - t0
+            det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+            rdet = pm.safe_rcp(det_uv)[:, None]
+            tang = pm.normalize((e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2])
+                                * rdet)
+            btex = sample_tex(stack, mat.tex_bump, uv)
+            bitan = pm.cross(ns, tang)
+            nt = btex[:, :3] * 2.0 - 1.0
+            n_mapped = pm.normalize(tang * nt[:, 0:1] + bitan * nt[:, 1:2]
+                                    + ns * nt[:, 2:3])
+            ns = torch.where((mat.tex_bump >= 0)[:, None], n_mapped, ns)
+        if kinds[0]:
+            tex = sample_tex(stack, mat.tex_diffuse, uv)
+            albedo4 = torch.where((mat.tex_diffuse >= 0)[:, None],
+                                  albedo4 * tex, albedo4)
+        if kinds[2]:
+            etex = sample_tex(stack, mat.tex_emissive, uv)
+            emissive = torch.where((mat.tex_emissive >= 0)[:, None],
+                                   emissive * etex[:, :3], emissive)
+        if kinds[1]:
+            has_stex = mat.tex_specular >= 0
+            stex = sample_tex(stack, mat.tex_specular, uv)
+            rough = torch.where(has_stex, rough * stex[:, 1], rough)
+            metal = torch.where(has_stex, metal * stex[:, 2], metal)
     return dict(
         shading_normal=ns,
         geom_normal=ng,
-        uv=torch.zeros((tri.shape[0], 2), dtype=torch.float32,
-                       device=tri.device),
-        albedo=mat.diffuse[:, :3],
-        alpha=mat.diffuse[:, 3],
-        roughness=mat.specular[:, 1],
-        metallic=mat.specular[:, 2],
-        emissive=mat.emissive[:, :3],
+        uv=uv,
+        albedo=albedo4[:, :3],
+        alpha=albedo4[:, 3],
+        roughness=rough,
+        metallic=metal,
+        emissive=emissive,
         transmission=mat.transmission[:, :3],
         ior=mat.ior,
     )
@@ -153,23 +203,59 @@ def _nee_contribution(scene, cfg: RenderConfig, p, n, ns_raw, diffuse_beta,
     return contrib, need.sum(dtype=torch.int32)
 
 
+def _env_nee_contribution(scene, cfg: RenderConfig, p, n, diffuse_beta, u,
+                          order=None):
+    """NEE toward the environment's bright texels (``cfg.env_nee``): one
+    direction from the luminance distribution, a shadow query to
+    infinity, balance-heuristic weight pdf_env / (pdf_env + pdf_cos).
+    The matching pdf_cos / (pdf_cos + pdf_env) weights the miss pickup
+    of the next bounce (``_env_pickup``), so the sum stays unbiased.
+    Returns (contribution f32[R,3], env shadow lanes i32)."""
+    env = scene.environment
+    ldir, pdf_e = sample_env_direction(env, u[:, smp.S_ENV1],
+                                       u[:, smp.S_ENV2])
+    cos_l = pm.dot(ldir, n)
+    pdf_c = torch.clamp(cos_l, min=0.0) / math.pi
+    w_mis = pdf_e / torch.clamp(pdf_e + pdf_c, min=1e-20)
+    # gate on the faceforwarded normal the cosine lobe samples around
+    need = (cos_l > 0.0) & (pdf_e > 0.0) & (diffuse_beta > 0.0).any(-1)
+    shadow_o = p + ldir * GAP
+    t_query = torch.where(need, INF_DIST, 0.0)
+    occ = occluded(scene, shadow_o, ldir, t_query, cfg, order=order)
+    env_l = env.sample(ldir)
+    # f / pdf of the lambertian (albedo / pi * cos / pdf_env), MIS-weighted
+    fac = (cos_l / math.pi) / torch.clamp(pdf_e, min=1e-20) * w_mis
+    contrib = torch.where((need & ~occ)[:, None],
+                          diffuse_beta * env_l * fac[:, None], 0.0)
+    return contrib, need.sum(dtype=torch.int32)
+
+
 def make_bounce_step(scene, cfg: RenderConfig):
-    """The per-bounce step: (carry, u f32[R,11]) -> (carry, stats i32[5])."""
+    """The per-bounce step: (carry, u f32[R,11]) -> (carry, stats i32[5]).
+    The carry is (o, d, beta, radiance, alive, prev_pdf, miss_dir,
+    miss_beta, miss_pdf); the two pdfs (the bsdf pdf of each lane's last
+    continuation, and of its miss) feed env-NEE MIS and stay zero
+    without ``cfg.env_nee``."""
+    kinds = (None if getattr(scene.textures, "stub", False)
+             else scene.materials.kinds_bound)
 
     def step(carry, u):
-        o, d, beta, radiance, alive, miss_dir, miss_beta = carry
+        (o, d, beta, radiance, alive, prev_pdf, miss_dir, miss_beta,
+         miss_pdf) = carry
         t_cap = torch.where(alive, INF_DIST, 0.0)
         hit, order = closest_hit(scene, o, d, cfg, t_cap=t_cap,
                                  with_order=True)
 
-        # deferred env pickup: record (direction, throughput) at the
-        # miss, fetch once after the loop
+        # deferred env pickup: record (direction, throughput, bsdf pdf)
+        # at the miss, fetch once after the loop
         miss = alive & hit.missed
         miss_dir = torch.where(miss[:, None], d, miss_dir)
         miss_beta = torch.where(miss[:, None], beta, miss_beta)
+        if cfg.env_nee:
+            miss_pdf = torch.where(miss, prev_pdf, miss_pdf)
 
         on_surf = alive & ~hit.missed
-        surf = _interpolate_surface(scene, hit)
+        surf = _interpolate_surface(scene, hit, cfg, kinds)
         p = o + hit.t[:, None] * d
         n = pm.faceforward(surf["shading_normal"], d)
 
@@ -234,6 +320,16 @@ def make_bounce_step(scene, cfg: RenderConfig):
                 scene, cfg, p, n, surf["shading_normal"], diffuse_beta, u,
                 order=order)
             radiance = radiance + nee
+        if cfg.env_nee:
+            env_nee, n_env_shadow = _env_nee_contribution(
+                scene, cfg, p, n, diffuse_beta, u, order=order)
+            radiance = radiance + env_nee
+            n_shadow = n_shadow + n_env_shadow
+            # the continuation's bsdf pdf: cosine for diffuse lanes, 0
+            # (a delta) for specular and pass-through ones
+            prev_pdf = torch.where(
+                choose_diff & on_surf,
+                torch.clamp(pm.dot(new_d, n), min=0.0) / math.pi, 0.0)
 
         new_alive = on_surf & (pm.length(new_beta) > cfg.min_throughput)
 
@@ -247,42 +343,59 @@ def make_bounce_step(scene, cfg: RenderConfig):
             new_alive.sum(dtype=torch.int32),   # survivors
             n_shadow,                           # NEE shadow lanes
         ])
-        return ((new_o, new_d, new_beta, radiance, new_alive, miss_dir,
-                 miss_beta), stats)
+        return ((new_o, new_d, new_beta, radiance, new_alive, prev_pdf,
+                 miss_dir, miss_beta, miss_pdf), stats)
 
     return step
 
 
-def _env_pickup(scene, radiance, miss_dir, miss_beta):
+def _env_pickup(scene, cfg: RenderConfig, radiance, miss_dir, miss_beta,
+                miss_pdf):
     """The deferred miss-shading env fetch: one bilinear lookup for every
-    lane (miss_beta is zero for lanes that never missed).  The JAX
-    package also carries each miss's bsdf pdf here for env-NEE MIS, which
-    the port does not run yet."""
-    return radiance + miss_beta * scene.environment.sample(miss_dir)
+    lane (miss_beta is zero for lanes that never missed).  Under
+    ``cfg.env_nee`` the recorded bsdf pdf gives the miss its
+    balance-heuristic weight against env NEE."""
+    env = scene.environment.sample(miss_dir)
+    if cfg.env_nee:
+        pdf_e = env_pdf(scene.environment, miss_dir)
+        w_miss = torch.where(
+            miss_pdf > 0.0,
+            miss_pdf / torch.clamp(miss_pdf + pdf_e, min=1e-20), 1.0)
+        env = env * w_miss[:, None]
+    return radiance + miss_beta * env
+
+
+def initial_carry(o, d):
+    """The bounce loop's carry for camera rays o, d f32[R,3]: unit
+    throughput, no radiance, every lane alive, delta (zero) pdfs."""
+    r = o.shape[0]
+    dev = o.device
+    return (
+        o, d,
+        torch.ones((r, 3), dtype=torch.float32, device=dev),
+        torch.zeros((r, 3), dtype=torch.float32, device=dev),
+        torch.ones((r,), dtype=torch.bool, device=dev),
+        torch.zeros((r,), dtype=torch.float32, device=dev),   # prev pdf
+        torch.nn.functional.pad(                              # miss d
+            torch.ones((r, 1), device=dev), (2, 0)),
+        torch.zeros((r, 3), dtype=torch.float32, device=dev),  # miss beta
+        torch.zeros((r,), dtype=torch.float32, device=dev),   # miss pdf
+    )
 
 
 def trace(scene, cfg: RenderConfig, o, d, bounce_samples):
     """Trace rays through ``cfg.max_bounces`` bounces.  o, d f32[R,3];
     bounce_samples f32[B,R,11].  Returns (radiance f32[R,3],
     stats i32[B,5])."""
-    r = o.shape[0]
-    dev = o.device
-    carry = (
-        o, d,
-        torch.ones((r, 3), dtype=torch.float32, device=dev),
-        torch.zeros((r, 3), dtype=torch.float32, device=dev),
-        torch.ones((r,), dtype=torch.bool, device=dev),
-        torch.nn.functional.pad(                              # miss d
-            torch.ones((r, 1), device=dev), (2, 0)),
-        torch.zeros((r, 3), dtype=torch.float32, device=dev),  # miss beta
-    )
+    carry = initial_carry(o, d)
     step = make_bounce_step(scene, cfg)
     stats = []
     for b in range(bounce_samples.shape[0]):
         carry, st = step(carry, bounce_samples[b])
         stats.append(st)
-    _, _, _, radiance, _, miss_dir, miss_beta = carry
-    radiance = _env_pickup(scene, radiance, miss_dir, miss_beta)
+    _, _, _, radiance, _, _, miss_dir, miss_beta, miss_pdf = carry
+    radiance = _env_pickup(scene, cfg, radiance, miss_dir, miss_beta,
+                           miss_pdf)
     return radiance, torch.stack(stats)
 
 

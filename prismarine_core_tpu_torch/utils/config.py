@@ -33,7 +33,8 @@ class RenderConfig:
     spp: int = 1
     #: next-event estimation toward the sphere lights
     direct_light: bool = True
-    #: environment importance sampling (not ported yet)
+    #: next-event estimation toward the environment's bright texels,
+    #: MIS-weighted against the cosine bounce
     env_nee: bool = False
     camera_360: bool = False
     interlace: bool = False
@@ -54,6 +55,7 @@ class RenderConfig:
     intersector: str = "bvh"
     mesh: object = None
     traverse_chunk: int = 0
+    #: "bicubic", else bilinear
     texture_filter: str = "bilinear"
     samples_lock: int = 0
     coherent_bounce_sampling: bool = False
@@ -100,7 +102,6 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
 
-_TEXTURES = "ROADMAP queue 1, 'Textures and env NEE'"
 _FEATURES = "ROADMAP queue 1, 'Remaining integrator and camera features'"
 _KNOBS = "ROADMAP queue 1, 'Packet-path knobs off the main path'"
 _INTERSECTORS = "ROADMAP queue 1, 'Other intersectors'"
@@ -113,10 +114,6 @@ def _unsupported(what: str, item: str):
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for any knob outside the ported slice."""
-    if cfg.texture_filter != "bilinear":
-        _unsupported(f"texture_filter={cfg.texture_filter!r}", _TEXTURES)
-    if cfg.env_nee:
-        _unsupported("env_nee", _TEXTURES)
     if cfg.rr_start_bounce > 0:
         _unsupported("rr_start_bounce > 0 (Russian roulette)", _FEATURES)
     for flag in ("interlace", "dof", "camera_360"):

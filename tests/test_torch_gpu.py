@@ -422,3 +422,107 @@ def test_hall_query_equal_plain(cuda_device, name, strategy, request):
     assert torch.equal(h.tri, h_p.tri) and torch.equal(h.t, h_p.t)
     assert torch.equal(occ, occ_p)
     assert bool((h.tri >= 0).any())
+
+
+def _bench_hall(dev, textured):
+    """The hall of 27,748 triangles (32 superblocks, so both rounds of the
+    closest query run) with the bench sky; ``textured``: 64^2 diffuse and
+    bump textures, corner-packed."""
+    import dataclasses
+    from prismarine_core_tpu_torch.models import procedural
+    scene = procedural.make_hall_scene(target_tris=20000, textured=textured,
+                                       texture_resolution=64, device=dev)
+    return dataclasses.replace(
+        scene, environment=procedural.make_sky_environment(128, device=dev))
+
+
+def _bench_frame(dev, scene, **knobs):
+    """A 64x48 frame of bench.py's main configuration (4 bounces, coherent
+    samples of seed 0) with ``knobs``; returns (image, stats)."""
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig(width=64, height=48, spp=1, max_bounces=4,
+                       intersector="pallas", coherent_bounce_sampling=True,
+                       anyhit_strategy="single", cull_impl="pallas2",
+                       closest_k=16, **knobs)
+    cam = Camera.look_at(eye=(-10.0, 2.2, 0.0), target=(6.0, 1.6, 0.0),
+                         fov_y_deg=60.0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cam_s, bounce_s = make_coherent_sample_arrays(gen, cfg, block=(8, 16))
+    return render_with_samples(scene, cam, cfg, cam_s, bounce_s,
+                               with_stats=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["textured", "env_nee",
+                                  "textured-bicubic"])
+def test_frame_equal_plain(cuda_device, case, request):
+    """The textured frame (bilinear and bicubic fetches on the card) and
+    the env-NEE frame (four queries a bounce) on the kernels equal their
+    plain-version frames bit for bit, with the kernels launched."""
+    dev = cuda_device
+    scene = _bench_hall(dev, textured=case.startswith("textured"))
+    knobs = dict(env_nee=case == "env_nee")
+    if case.endswith("bicubic"):
+        knobs["texture_filter"] = "bicubic"
+    launches = si.sb_intersect.launches
+    syncs = pk.compact_pairs.host_syncs
+    img, stats = _bench_frame(dev, scene, **knobs)
+    assert si.sb_intersect.launches - launches == (
+        16 if knobs["env_nee"] else 12)
+    assert pk.compact_pairs.host_syncs - syncs == (
+        16 if knobs["env_nee"] else 12)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-2
+    request.getfixturevalue("plain_versions")
+    img_p, stats_p = _bench_frame(dev, scene, **knobs)
+    assert torch.equal(img, img_p) and torch.equal(stats, stats_p)
+
+
+@pytest.mark.gpu
+def test_env_shadow_query_inputs_equal_plain(cuda_device, monkeypatch):
+    """The env shadow query of a bounce-1 step (every cap INF_DIST, rays
+    aimed at the sky's bright texels): both culls and the "mt" walk equal
+    their plain versions exactly on the inputs the step gives them."""
+    from prismarine_core_tpu_torch.models.camera import (
+        Camera, generate_rays)
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    from prismarine_core_tpu_torch.render.integrator import (
+        initial_carry, make_bounce_step)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    dev = cuda_device
+    scene = _bench_hall(dev, textured=False)
+    cfg = RenderConfig(width=64, height=48, spp=1, max_bounces=2,
+                       intersector="pallas", coherent_bounce_sampling=True,
+                       anyhit_strategy="single", cull_impl="pallas2",
+                       closest_k=16, env_nee=True)
+    cam = Camera.look_at(eye=(-10.0, 2.2, 0.0), target=(6.0, 1.6, 0.0),
+                         fov_y_deg=60.0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cam_s, bounce_s = make_coherent_sample_arrays(gen, cfg, block=(8, 16))
+    step = make_bounce_step(scene, cfg)
+    carry, _ = step(initial_carry(*generate_rays(cam, cfg, cam_s)),
+                    bounce_s[0])
+    calls = {"block_cull": [], "pair_cull": [], "sb_intersect": []}
+    for name, fn in (("block_cull", cull.block_cull),
+                     ("pair_cull", cull.pair_cull),
+                     ("sb_intersect", si.sb_intersect)):
+        def rec(*args, _fn=fn, _name=name):
+            calls[_name].append(args)
+            return _fn(*args)
+        monkeypatch.setattr(pk, name, rec)
+    step(carry, bounce_s[1])
+    # closest rounds 1 and 2, sun shadow, env shadow
+    assert [len(v) for v in calls.values()] == [4, 4, 4]
+    bargs, pargs, sargs = (calls[k][3] for k in calls)
+    assert bool((bargs[0][:, 6] == INF_DIST).any())
+    assert torch.equal(cull.block_cull(*bargs), cull.block_cull_plain(*bargs))
+    assert torch.equal(cull.pair_cull(*pargs), cull.pair_cull_plain(*pargs))
+    assert int(pargs[2]) > 0
+    out = si.sb_intersect(*sargs)
+    ref = si.sb_intersect_plain(*sargs)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))

@@ -143,9 +143,9 @@ def test_render_entry_point_and_unported_knobs():
     b = tint.render(scene, cam, cfg, torch.Generator().manual_seed(1))
     assert torch.equal(a, b) and torch.isfinite(a).all()
     assert a.shape == (16, 16, 3) and a.mean() > 1e-2
-    for bad in (dict(env_nee=True), dict(rr_start_bounce=1),
+    for bad in (dict(rr_start_bounce=1),
                 dict(interlace=True), dict(dof=True),
-                dict(camera_360=True), dict(texture_filter="bicubic"),
+                dict(camera_360=True),
                 dict(reuse_bounce_order=True), dict(primary_identity=True),
                 dict(primary_tile_order=True), dict(sort_mode="group"),
                 dict(cull_impl="xla"),

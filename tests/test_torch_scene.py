@@ -49,7 +49,10 @@ def jax_scene_arrays(scene) -> dict:
             v = getattr(obj, f.name)
             if isinstance(v, jax.Array):
                 out[f"{g}.{f.name}"] = np.asarray(v)
-    out["textures.data"] = np.asarray(scene.textures.data)
+    for f in ("data", "sizes", "quad"):
+        v = getattr(scene.textures, f)
+        if v is not None:
+            out[f"textures.{f}"] = np.asarray(v)
     return out
 
 
@@ -105,16 +108,22 @@ def test_build_bvh_matches_jax(n_tris, capacity, seed):
 
 
 def test_interop_round_trip(halls):
+    """The stub hall and a JAX textured hall (texture data, native sizes,
+    corner quads) cross over and back exactly; an unknown array raises."""
     jh, _ = halls
-    arrays = jax_scene_arrays(jh)
-    scene = interop.scene_from_numpy(arrays, device=CPU)
-    back = interop.scene_to_numpy(scene)
-    assert set(back) == set(arrays)
-    for k, v in arrays.items():
-        np.testing.assert_array_equal(back[k], v, err_msg=k)
-    assert scene.textures.stub
-    with pytest.raises(NotImplementedError):
-        interop.scene_from_numpy({**arrays, "textures.quad": arrays[
+    jt = jproc.make_hall_scene(target_tris=3000, textured=True,
+                               texture_resolution=32)
+    for jscene, stub in ((jh, True), (jt, False)):
+        arrays = jax_scene_arrays(jscene)
+        scene = interop.scene_from_numpy(arrays, device=CPU)
+        back = interop.scene_to_numpy(scene)
+        assert set(back) == set(arrays)
+        for k, v in arrays.items():
+            np.testing.assert_array_equal(back[k], v, err_msg=k)
+        assert scene.textures.stub == stub
+    assert {"textures.sizes", "textures.quad"} <= set(arrays)
+    with pytest.raises(KeyError):
+        interop.scene_from_numpy({**arrays, "textures.mips": arrays[
             "textures.data"]}, device=CPU)
 
 
