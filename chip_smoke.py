@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: the bench frame, the
-inverse-rendering train step, the textured hall frame and the env-NEE
-frame on one NVIDIA GPU.
+inverse-rendering train step, the textured hall frame, the env-NEE frame,
+the BVH walk and the "bvh" frame (RenderConfig's default intersector),
+Russian roulette, interlacing, depth of field and the 360 camera on one
+NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -78,12 +80,36 @@ Phases (any failure exits non-zero):
                 with launches 1..16 (a second shadow query a bounce),
                 and both culls, "mt" and "mt2" equal to their plain
                 versions on the four inputs of its bounce-1 step (closest
-                rounds 1 and 2, sun shadow, env shadow).
+                rounds 1 and 2, sun shadow, env shadow);
+ 10. walk     — the BVH walk kernel (csrc/bvh_walk.cu) at the bench
+                frame's bounce-1 rays: equal to its plain version (the
+                lockstep walk) on (t, slot) exactly for the closest and
+                the shadow query of the bounce-1 step under "bvh";
+                traversal_stats and the bound from them; CUDA-event times
+                in alternating turns of the closest walk unsorted, the
+                coherence sort alone, the closest walk sorted and the
+                shadow walk; the "bvh" closest query against the "pallas"
+                one on the same rays (hit/miss and triangle agreement;
+                lanes on another triangle are ties (equal t) or edge and
+                grazing lanes, and those must stay under 1e-4 of the
+                hits);
+ 11. frame bvh — bench.py's main configuration with intersector="bvh":
+                the frame's measurements, the walk launched 8 times and
+                no packet-query kernel, and >= 98% of pixels and the mean
+                within 0.5% of the "mt" frame on the same samples;
+ 12. frames rr — the bench configuration with rr_start_bounce=2 on
+                "pallas" and on "bvh" (the same samples): each held to
+                the other by the same gate, the per-bounce survivors below
+                the frame without RR from bounce 2 on;
+ 13. features — on "pallas": interlace stages 0 and 1 (each inactive
+                parity exactly 0; their sum against the "mt" frame by the
+                gate), the DOF frame and the 360 frame (finite, mean >
+                1e-2).
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
-JSON (all five kernels, with their launches on each path, and every
-frame's and the step's results), nvidia-smi's line, and ``{"ok": true,
+JSON (the five ported kernels and bvh_walk, with their launches on each
+path, and every frame's and the step's results), nvidia-smi's line, and ``{"ok": true,
 "device": {...}}``.  Nothing falls back to the CPU.
 """
 
@@ -108,8 +134,12 @@ W, H, BOUNCES = 1280, 720, 4
 #: 0.29-0.35 over sample seeds 0-3 on an H100)
 MEAN_BAND = (0.2, 0.4)
 KERNELS = ("block_cull", "pair_cull", "sb_intersect", "sb_intersect_mt2",
-           "sb_intersect_mxu")
+           "sb_intersect_mxu", "bvh_walk")
+#: the kernels of the "mt" frame's packet query
+MT_PATH = ("block_cull", "pair_cull", "sb_intersect")
 MAX_LAUNCHES = 2 * BOUNCES + BOUNCES     # per frame, each kernel
+#: the "bvh" frame: one closest and one shadow walk a bounce
+BVH_LAUNCHES = 2 * BOUNCES
 #: the same with env NEE: a second shadow query per bounce
 MAX_LAUNCHES_ENV = 2 * BOUNCES + 2 * BOUNCES
 #: the card's published peaks (H100 SXM at 700 W): fp32 outside the
@@ -119,6 +149,9 @@ FP32_PER_S, BYTES_PER_S = 67e12, 3.35e12
 #: per ray-triangle test of the elementwise and determinant forms
 #: (adds, subs, muls, the divide; compares and selects not counted)
 SLAB_OPS, MT_OPS, MXU_OPS = 23, 46, 39
+#: bytes the walk reads once per ray (o, d, t_cap) and writes (t, slot),
+#: per BVH node (lo, hi, left, skip) and per slot (tv0..2, orig)
+WALK_RAY_BYTES, WALK_NODE_BYTES, WALK_SLOT_BYTES = 28 + 8, 32, 40
 #: fp32 operations of the cull kernels' tile-level reject
 #: (csrc/cull.cu), counted as SLAB_OPS is: per ray of a tile's reduction
 #: (bounds_add: min of o, -o, iv, -iv per axis and of -t_cap), and per
@@ -132,6 +165,8 @@ ENV_STEP_QUERIES = STEP_QUERIES + ("env shadow",)
 #: profiler ranges around the textured frame's texture fetches and the
 #: gathers inside them (chip_smoke's own wrappers, ``texture_ranges``)
 TEX_FETCH, TEX_GATHER = "texture fetch", "texture gather"
+#: the profiler's own range around each scheduled step (a span, no op)
+STEP_RANGE = "ProfilerStep"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
 #: the 64-triangle cornell box
 CORNELL_KW = dict(lr=0.02, normalize_grads=True,
@@ -179,12 +214,16 @@ def ptxas_lines(text: str):
 
 
 def short_name(mangled: str) -> str:
-    """A kernel's name and, for the walk, its form, from its mangled name
-    (``sb_intersect_walk_kernel<FormMT2>``)."""
-    m = re.search(r"\d+(\w+?_kernel)(?:INS_\d+(Form\w+?)E)?",
+    """A kernel's name and, for a walk, its form or query, from its
+    mangled name (``sb_intersect_walk_kernel<FormMT2>``,
+    ``bvh_walk_kernel<any_hit>``)."""
+    m = re.search(r"\d+(\w+?_kernel)(?:INS_\d+(Form\w+?)E|ILb([01])E)?",
                   mangled.split("prismarine")[-1])
     if m is None:
         return mangled
+    if m.group(3) is not None:
+        return m.group(1) + ("<any_hit>" if m.group(3) == "1"
+                             else "<closest>")
     return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
 
 
@@ -225,6 +264,20 @@ def mt2_stages(pt, pm, n_real) -> str:
             f"sub-blocks), {lone / max(n, 1):.4f} of them one chain")
 
 
+def edge_cos(scene, o, d, tri):
+    """Per lane, the distance of the hit to the nearest edge of triangle
+    ``tri`` in barycentrics, and |cos(d, n)|."""
+    import torch
+    from prismarine_core_tpu_torch.ops.intersect import moller_trumbore
+    from prismarine_core_tpu_torch.utils import math as pm
+    s = scene.triangles
+    v0, v1, v2 = (pm.take_rows(x, tri.long()) for x in (s.v0, s.v1, s.v2))
+    _, u, v, _ = moller_trumbore(o, d, v0, v1, v2)
+    n = pm.normalize(pm.cross(v1 - v0, v2 - v0))
+    return (torch.minimum(torch.minimum(u, v), 1.0 - u - v).abs(),
+            pm.dot(d, n).abs())
+
+
 def mxu_bounds(scene, rays, tn, tx, sm, sx):
     """The "mxu" form against "mt" on live lanes (``rays`` their kernel
     ray rows): hit parity > 99.5% and slot parity > 99% where both hit,
@@ -237,8 +290,6 @@ def mxu_bounds(scene, rays, tn, tx, sm, sx):
     through a crack or clips a neighbour) or grazing (|cos(d, n)| <
     1e-2, t = t_num / det ill-conditioned)."""
     import torch
-    from prismarine_core_tpu_torch.ops.intersect import moller_trumbore
-    from prismarine_core_tpu_torch.utils import math as pm
     agree_hit = (sm >= 0) == (sx >= 0)
     both = (sm >= 0) & (sx >= 0)
     same = sm[both] == sx[both]
@@ -250,20 +301,11 @@ def mxu_bounds(scene, rays, tn, tx, sm, sx):
     n_edge = n_graze = 0
     worst = 0.0
     if off.any():
-        s = scene.triangles
         r = rays[both][off]
-
-        def edge_cos(slot):
-            """Distance to the nearest edge in barycentrics, and
-            |cos(d, n)|, of each lane's winner."""
-            tri = scene.bvh.orig[slot.long()].long()
-            v0, v1, v2 = (pm.take_rows(x, tri) for x in (s.v0, s.v1, s.v2))
-            _, u, v, _ = moller_trumbore(r[:, 0:3], r[:, 3:6], v0, v1, v2)
-            n = pm.normalize(pm.cross(v1 - v0, v2 - v0))
-            return (torch.minimum(torch.minimum(u, v), 1.0 - u - v).abs(),
-                    pm.dot(r[:, 3:6], n).abs())
-
-        (em, cm), (ex, cx) = edge_cos(sm[both][off]), edge_cos(sx[both][off])
+        (em, cm), (ex, cx) = (
+            edge_cos(scene, r[:, 0:3], r[:, 3:6],
+                     scene.bvh.orig[slot[both][off].long()])
+            for slot in (sm, sx))
         near = torch.minimum(em, ex)              # either winner's edge
         edge = near < 1e-3
         graze = ~edge & (torch.minimum(cm, cx) < 1e-2)
@@ -630,12 +672,14 @@ def plain_versions():
 
 
 def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
-                max_launches=MAX_LAUNCHES, mean_band=MEAN_BAND, ranges=None):
+                max_launches=MAX_LAUNCHES, mean_band=MEAN_BAND, ranges=None,
+                kernels=MT_PATH):
     """One frame of ``cfg`` on ``scene`` with every launch counter read
-    around it (each "mt"-path kernel 1..``max_launches`` times), finite,
-    its mean in ``mean_band``; host syncs, ``n_frames`` timed frames
-    (equal to the first), peak memory and one profiled frame (under the
-    profiler ranges that ``ranges()`` opens, if given)."""
+    around it (each kernel of ``kernels`` 1..``max_launches`` times, every
+    other kernel 0), finite, its mean in ``mean_band``; host syncs,
+    ``n_frames`` timed frames (equal to the first), peak memory and one
+    profiled frame (under the profiler ranges that ``ranges()`` opens, if
+    given)."""
     import torch
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.ops.sampling import (
@@ -658,9 +702,9 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
     compactions = pk.compact_pairs.host_syncs - syncs0
     log(f"[{tag}] first frame {first_s:.3f} s; launches {launches}; "
         f"{compactions} pair compactions")
-    for k in ("block_cull", "pair_cull", "sb_intersect"):
-        require(0 < launches[k] <= max_launches, f"{tag} {k}: "
-                f"{launches[k]} launches")
+    for k, n in launches.items():
+        require(0 < n <= max_launches if k in kernels else n == 0,
+                f"{tag} {k}: {n} launches")
     require(img.shape == (H, W, 3), f"{tag} image shape "
             f"{tuple(img.shape)}")
     require(bool(torch.isfinite(img).all()), f"{tag}: non-finite image")
@@ -707,10 +751,26 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
     return img, result, (cam_s, bounce_s)
 
 
-def phase_parity(scene, cam, cfg, img, samples, tag="parity"):
-    """The same frame on the kernels' plain versions: >= 98% of pixels
-    ``isclose(rtol=1e-3, atol=1e-3)`` and the mean within 0.5%."""
+def image_gate(img, ref, tag, what="plain-version frame"):
+    """``img`` against ``ref``: >= 98% of pixels ``isclose(rtol=1e-3,
+    atol=1e-3)``, the mean within 0.5%, finite; logged with whether the
+    two are bit-identical."""
     import numpy as np
+    a, b = img.cpu().numpy(), ref.cpu().numpy()
+    close = np.isclose(a, b, rtol=1e-3, atol=1e-3).all(axis=-1).mean()
+    same = bool(np.array_equal(a, b))
+    log(f"[{tag}] against the {what}: pixel parity {close:.6f}, mean "
+        f"{a.mean():.6f} vs {b.mean():.6f}, bit-identical {same}")
+    require(bool(np.isfinite(a).all()), f"{tag}: non-finite image")
+    require(close >= 0.98, f"{tag}: pixel parity {close}")
+    require(abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean()),
+            f"{tag}: image mean {a.mean()} vs {b.mean()}")
+    return dict(pixel_parity=float(close), ref_mean=float(b.mean()),
+                bit_identical=same)
+
+
+def phase_parity(scene, cam, cfg, img, samples, tag="parity"):
+    """The same frame on the kernels' plain versions: the image gate."""
     import torch
     from prismarine_core_tpu_torch.render.integrator import (
         render_with_samples)
@@ -718,26 +778,19 @@ def phase_parity(scene, cam, cfg, img, samples, tag="parity"):
     with plain_versions():
         ref = render_with_samples(scene, cam, cfg, *samples)
     torch.cuda.synchronize()
-    a, b = img.cpu().numpy(), ref.cpu().numpy()
-    close = np.isclose(a, b, rtol=1e-3, atol=1e-3).all(axis=-1).mean()
-    same = bool(np.array_equal(a, b))
-    log(f"[{tag}] plain-version frame in {time.perf_counter() - t0:.1f} "
-        f"s: pixel parity {close:.6f}, mean {a.mean():.6f} vs "
-        f"{b.mean():.6f}, bit-identical {same}")
-    require(close >= 0.98, f"{tag}: pixel parity {close}")
-    require(abs(a.mean() - b.mean()) <= 5e-3 * abs(b.mean()),
-            f"{tag}: image mean {a.mean()} vs plain {b.mean()}")
-    return dict(pixel_parity=float(close), plain_mean=float(b.mean()),
-                bit_identical=same)
+    log(f"[{tag}] plain-version frame in {time.perf_counter() - t0:.1f} s")
+    return image_gate(img, ref, tag)
 
 
 def zero_launches():
     """Every kernel wrapper's launch count, set to 0; returns a reader."""
     from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
     wrappers = {"block_cull": cull.block_cull, "pair_cull": cull.pair_cull,
                 "sb_intersect": si.sb_intersect,
                 "sb_intersect_mt2": si.sb_intersect_mt2,
-                "sb_intersect_mxu": si.sb_intersect_mxu}
+                "sb_intersect_mxu": si.sb_intersect_mxu,
+                "bvh_walk": bw.bvh_walk}
     for w in wrappers.values():
         w.launches = 0
     return lambda: {k: w.launches for k, w in wrappers.items()}
@@ -911,6 +964,237 @@ def phase_env_nee(scene, cam, cfg, dev):
     return res
 
 
+def record_walks(scene, cfg, carry, samples):
+    """The arguments of the two ``bvh_walk`` calls of one bounce step at
+    ``carry`` under ``cfg`` (intersector "bvh", on the kernel): the
+    closest query and the shadow query."""
+    from prismarine_core_tpu_torch.accel import traverse
+    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    calls, walk = [], traverse.bvh_walk
+
+    def run(*args):
+        calls.append(args)
+        return walk(*args)
+    traverse.bvh_walk = run
+    try:
+        make_bounce_step(scene, cfg)(carry, samples)
+    finally:
+        traverse.bvh_walk = walk
+    require(len(calls) == 2, f"walks in one bounce step: {len(calls)}")
+    return calls
+
+
+def alternating_ms(fns, turns=5, reps=10):
+    """Median CUDA-event ms of each of ``fns`` over ``turns`` turns taken
+    in alternation, ``reps`` launches a turn (and each turn's values)."""
+    import statistics
+    runs = {k: [] for k in fns}
+    for _ in range(turns):
+        for k, fn in fns.items():
+            runs[k].append(cuda_ms(fn, reps))
+    return {k: statistics.median(v) for k, v in runs.items()}, runs
+
+
+def phase_walk(scene, cam, cfg, dev):
+    """The BVH walk kernel at the bench frame's bounce-1 rays: equal to
+    its plain version on the closest and the shadow query of the bounce-1
+    step under "bvh", traversal_stats and the bounds, the times in
+    alternating turns, and the "bvh" query against the "pallas" one."""
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.accel import traverse as tr
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
+    from prismarine_core_tpu_torch.render.integrator import _pallas_kwargs
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    cfg_b = cfg.replace(intersector="bvh")
+    _, _, _, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
+    (bvh, co, cd, ct, _), (_, so, sd, st, _) = record_walks(
+        scene, cfg_b, carry1, bounce_s[1])
+    queries = {"closest": (co, cd, ct, False), "shadow": (so, sd, st, True)}
+    k = bvh.leaf_size
+    tree_b = bvh.n_nodes * WALK_NODE_BYTES + bvh.tv0.shape[0] * WALK_SLOT_BYTES
+    out = {"rays": co.shape[0]}
+    for label, (o, d, t_cap, any_hit) in queries.items():
+        t, slot = bw.bvh_walk(bvh, o, d, t_cap, any_hit)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp, sp, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        require(torch.equal(t, tp) and torch.equal(slot.long(), sp),
+                f"bvh_walk {label} (t, slot) != plain")
+        stats = tr.traversal_stats(bvh, o, d, t_cap)
+        ops = SLAB_OPS * stats["steps"] + MT_OPS * k * stats["leaf_visits"]
+        b = bound(ops, o.shape[0] * WALK_RAY_BYTES + tree_b)
+        live = int((t_cap > 0).sum())
+        log(f"[walk] bounce1 {label}: {o.shape[0]} rays ({live} with t_cap "
+            f"> 0), {int((slot >= 0).sum())} hits; == plain exactly on every "
+            f"ray, the plain walk {plain_ms:.1f} ms (host clock); "
+            f"traversal_stats {stats} "
+            f"(the closest walk's{' at the shadow caps: an upper bound' if any_hit else ''}); "
+            f"bound {b[0]:.4f} ms by {b[1]}")
+        out[label] = dict(stats=stats, bound_ms=b[0], bound_by=b[1],
+                          plain_ms=plain_ms, hits=int((slot >= 0).sum()),
+                          max_abs_err=float((t - tp).abs().max()))
+
+    # the coherence sort of _run_traversal: keys, sort, inverse, the three
+    # gathers in and the two out
+    def sort_rays():
+        perm = torch.sort(tr._ray_sort_keys(bvh, co, cd), stable=True)[1]
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=dev)
+        return co[perm], cd[perm], ct[perm], inv
+    po, pd, pt, inv = sort_rays()
+    ts_, ss_ = bw.bvh_walk(bvh, po, pd, pt)
+    t_u, s_u = bw.bvh_walk(bvh, co, cd, ct)
+    require(torch.equal(ts_[inv], t_u) and torch.equal(ss_[inv], s_u),
+            "bvh_walk on sorted rays != unsorted")
+
+    def sort_cost():
+        _, _, _, i = sort_rays()
+        return ts_[i], ss_[i]
+    med, runs = alternating_ms({
+        "closest": lambda: bw.bvh_walk(bvh, co, cd, ct),
+        "sort": sort_cost,
+        "closest_sorted": lambda: bw.bvh_walk(bvh, po, pd, pt),
+        "shadow": lambda: bw.bvh_walk(bvh, so, sd, st, True)})
+    out["ms"], out["turns_ms"] = med, runs
+    cb = out["closest"]["bound_ms"]
+    log(f"[walk] bounce1 times (medians of 5 alternating turns of 10 "
+        f"launches): closest {med['closest']:.4f} ms ({cb / med['closest']:.4f} "
+        f"of its bound), coherence sort {med['sort']:.4f} ms + closest on "
+        f"sorted rays {med['closest_sorted']:.4f} ms "
+        f"({cb / med['closest_sorted']:.4f} of the bound), shadow "
+        f"{med['shadow']:.4f} ms (bound {out['shadow']['bound_ms']:.4f} ms, "
+        f"an upper bound); turns {({k: [round(x, 4) for x in v] for k, v in runs.items()})}")
+
+    # the "bvh" query against the "pallas" query on the same rays
+    o1, d1, alive = carry1[0], carry1[1], carry1[4]
+    hb = tr.intersect_closest_bvh(scene.bvh, scene.triangles, o1, d1)
+    hp = pk.intersect_closest_pallas(
+        scene.bvh, scene.packets, scene.triangles, o1, d1,
+        t_cap=torch.where(alive, INF_DIST, 0.0),
+        **_pallas_kwargs(cfg, any_hit=False))
+    tb, tp_ = hb.tri[alive], hp.tri[alive]
+    agree = (tb >= 0) == (tp_ >= 0)
+    both = (tb >= 0) & (tp_ >= 0)
+    diff = both & (tb != tp_)
+    tie = diff & (hb.t[alive] == hp.t[alive])
+    other = diff & ~tie
+    n_edge = n_graze = 0
+    if other.any():
+        oo, dd = o1[alive][other], d1[alive][other]
+        (eb, cb_), (ep, cp) = (edge_cos(scene, oo, dd, x[other])
+                               for x in (tb, tp_))
+        edge = torch.minimum(eb, ep) < 1e-3
+        graze = ~edge & (torch.minimum(cb_, cp) < 1e-2)
+        n_edge, n_graze = int(edge.sum()), int(graze.sum())
+    n_hits = int(both.sum())
+    non_tie = int(other.sum()) + int((~agree).sum())
+    log(f"[walk] bvh vs pallas, bounce-1 closest query on {int(alive.sum())} "
+        f"live lanes: hit/miss agree on {float(agree.float().mean()):.6f} "
+        f"({int((~agree).sum())} lanes differ), triangle agrees on "
+        f"{1 - int(diff.sum()) / max(n_hits, 1):.6f} of {n_hits} joint hits; "
+        f"{int(tie.sum())} tie lanes (equal t), {int(other.sum())} others "
+        f"({n_edge} within 1e-3 of an edge of either triangle, {n_graze} "
+        f"grazing); non-tie lanes {non_tie} against a limit of "
+        f"{1e-4 * n_hits:.1f}")
+    require(non_tie <= 1e-4 * n_hits, f"bvh vs pallas: {non_tie} non-tie "
+            "lanes")
+    out["vs_pallas"] = dict(hit_agree=float(agree.float().mean()),
+                            joint_hits=n_hits, ties=int(tie.sum()),
+                            non_tie=non_tie, edge=n_edge, graze=n_graze)
+    return out
+
+
+def phase_frame_bvh(scene, cam, cfg, dev, mt_img):
+    """bench.py's main configuration under intersector="bvh": the frame's
+    measurements with the walk launched BVH_LAUNCHES times and no other
+    kernel, and the image gate against the "mt" frame (same samples)."""
+    cfg_b = cfg.replace(intersector="bvh")
+    img, res, _ = phase_frame(scene, cam, cfg_b, dev, tag="frame bvh",
+                              max_launches=BVH_LAUNCHES,
+                              mean_band=(1e-2, math.inf),
+                              kernels=("bvh_walk",))
+    require(res["launches"]["bvh_walk"] == BVH_LAUNCHES,
+            f"frame bvh: {res['launches']['bvh_walk']} walk launches")
+    res["vs_mt"] = image_gate(img, mt_img, "frame bvh", "mt frame")
+    return img, res
+
+
+def phase_rr(scene, cam, cfg, dev, stats_mt, stats_bvh):
+    """The bench configuration with rr_start_bounce=2 (the "rr-2"
+    configuration of examples/r6_rr_quality.py) on "pallas" and on "bvh"
+    with the same samples: each frame's measurements, each image against
+    the other by the gate, survivors below the frame without RR from
+    bounce 2 on."""
+    cfg_r = cfg.replace(rr_start_bounce=2)
+    img_p, res_p, _ = phase_frame(scene, cam, cfg_r, dev,
+                                  tag="frame rr pallas",
+                                  mean_band=(1e-2, math.inf))
+    img_b, res_b, _ = phase_frame(scene, cam, cfg_r.replace(intersector="bvh"),
+                                  dev, tag="frame rr bvh",
+                                  max_launches=BVH_LAUNCHES,
+                                  mean_band=(1e-2, math.inf),
+                                  kernels=("bvh_walk",))
+    res_p["vs_bvh"] = image_gate(img_p, img_b, "frame rr pallas",
+                                 "rr bvh frame")
+    res_b["vs_pallas"] = image_gate(img_b, img_p, "frame rr bvh",
+                                    "rr pallas frame")
+    for tag, res, ref in (("pallas", res_p, stats_mt), ("bvh", res_b,
+                                                         stats_bvh)):
+        surv = [row[3] for row in res["stats"]]
+        ref_surv = [row[3] for row in ref]
+        log(f"[frame rr {tag}] survivors per bounce {surv} against "
+            f"{ref_surv} without RR")
+        for b in range(2, BOUNCES):
+            require(surv[b] < ref_surv[b], f"frame rr {tag}: survivors of "
+                    f"bounce {b}: {surv[b]} vs {ref_surv[b]} without RR")
+    return res_p, res_b
+
+
+def phase_features(scene, cam, cfg, dev, mt_img, samples):
+    """Interlacing, depth of field and the 360 camera on "pallas" with the
+    bench samples: stage 0 plus stage 1 against the "mt" frame by the
+    gate (each stage's inactive parity exactly 0); the DOF and 360 frames
+    finite with mean > 1e-2; one timed frame of each after a warm one."""
+    import torch
+    from prismarine_core_tpu_torch.render.integrator import (
+        interlace_mask, render_with_samples)
+    out = {}
+
+    def timed(c, stage=0):
+        render_with_samples(scene, cam, c, *samples, stage)
+        torch.cuda.synchronize()
+        read = zero_launches()
+        t0 = time.perf_counter()
+        img = render_with_samples(scene, cam, c, *samples, stage)
+        torch.cuda.synchronize()
+        return img, 1e3 * (time.perf_counter() - t0), read()
+    cfg_i = cfg.replace(interlace=True)
+    parts = []
+    for stage in (0, 1):
+        img, ms, launches = timed(cfg_i, stage)
+        m = interlace_mask(cfg, stage, device=dev)
+        require(bool((img[~m] == 0).all()), f"interlace stage {stage}: an "
+                "inactive pixel is not 0")
+        log(f"[interlace] stage {stage}: {ms:.3f} ms, launches {launches}, "
+            f"mean {float(img.mean()):.6f}")
+        out[f"interlace{stage}"] = dict(ms=ms, launches=launches,
+                                        mean=float(img.mean()))
+        parts.append(img)
+    out["interlace_vs_mt"] = image_gate(parts[0] + parts[1], mt_img,
+                                        "interlace", "mt frame")
+    for tag, kw in (("dof", dict(dof=True)), ("360", dict(camera_360=True))):
+        img, ms, launches = timed(cfg.replace(**kw))
+        mean = float(img.mean())
+        log(f"[{tag}] {ms:.3f} ms, launches {launches}, mean {mean:.6f}")
+        require(bool(torch.isfinite(img).all()), f"{tag}: non-finite image")
+        require(mean > 1e-2, f"{tag}: mean {mean}")
+        out[tag] = dict(ms=ms, launches=launches, mean=mean)
+    return out
+
+
 def _cos(a, b):
     import torch
     a, b = a.double().reshape(-1), b.double().reshape(-1)
@@ -925,7 +1209,8 @@ def _finite_nonzero(tensors, what):
 
 
 #: device-op groups of a profile, by the first matching name fragment
-OP_GROUPS = (("port kernels", ("cull_kernel", "sb_intersect")),
+OP_GROUPS = (("port kernels", ("cull_kernel", "sb_intersect",
+                                "bvh_walk")),
              ("index/scatter", ("index", "scatter")),
              ("gather", ("gather",)),
              ("sort", ("sort", "radix")),
@@ -934,20 +1219,28 @@ OP_GROUPS = (("port kernels", ("cull_kernel", "sb_intersect")),
 
 
 def profile_once(fn, tag, ranges=()):
-    """``fn()`` once under torch.profiler (CPU + CUDA activities): wall
-    ms, device busy ms (the sum of device ops' self times), the idle
-    share, device time by OP_GROUPS and the top ops by device time.
+    """``fn()`` under torch.profiler (CPU + CUDA activities), in two
+    steps: a warm-up whose events are dropped (a profile that starts
+    with the call can lose the device ops at its start), then the
+    measured call: wall ms, device busy ms (the sum of device ops' self
+    times), the idle share, device time by OP_GROUPS and the top ops by
+    device time.
     ``ranges``: names of ``record_function`` ranges open around parts of
     ``fn``; each one's device time (its kernels') is logged, and the
     TEX_GATHER range's is a group of its own, taken out of "gather"."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+        prof.step()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -956,7 +1249,7 @@ def profile_once(fn, tag, ranges=()):
     averages = prof.key_averages()
     ops = [e for e in averages
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.key not in ranges]
+           and e.key not in ranges and not e.key.startswith(STEP_RANGE)]
     range_ms = {}
     for name in ranges:
         rows = [e for e in averages if e.key == name
@@ -989,7 +1282,8 @@ def profile_once(fn, tag, ranges=()):
         log(f"[{tag} profile]   {ms:9.3f} ms  x{n:<5d} {name}")
     cull_ms = {name: (n, ms) for name, n, ms in rows if "cull_kernel" in name}
     walk_ms = {name: (n, ms) for name, n, ms in rows
-               if "sb_intersect_walk_kernel" in name}
+               if "sb_intersect_walk_kernel" in name
+               or "bvh_walk_kernel" in name}
     log(f"[{tag} profile] cull kernels: "
         f"{ {k: (n, round(ms, 4)) for k, (n, ms) in cull_ms.items()} }, "
         f"{sum(ms for _, ms in cull_ms.values()):.4f} ms; "
@@ -1017,7 +1311,8 @@ def launch_gaps(prof) -> str:
     import torch
     ev = sorted((e for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.name not in (TEX_FETCH, TEX_GATHER)),
+                 and e.name not in (TEX_FETCH, TEX_GATHER)
+                 and not e.name.startswith(STEP_RANGE)),
                 key=lambda e: e.time_range.start)
     gaps = {"cull": [], "all": []}
     for prev, e in zip(ev, ev[1:]):
@@ -1161,15 +1456,26 @@ def main() -> int:
     train = phase_train(scene, cam, cfg, dev, img, samples)
     textured = phase_textured(scene, cam, cfg, dev)
     env = phase_env_nee(scene, cam, cfg, dev)
+    walk = phase_walk(scene, cam, cfg, dev)
+    _, frame_bvh = phase_frame_bvh(scene, cam, cfg, dev, img)
+    rr_pallas, rr_bvh = phase_rr(scene, cam, cfg, dev, frame["stats"],
+                                 frame_bvh["stats"])
+    features = phase_features(scene, cam, cfg, dev, img, samples)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0))
                  for k, v in step_errs.items()}
 
     # each kernel's launches on its path: the frame's for the "mt" path
-    # kernels, the "mt2" frame's and one train step's for the other forms
+    # kernels, the "mt2" frame's and one train step's for the other forms,
+    # the "bvh" frame's for the walk
     launches = dict(frame["launches"])
     launches["sb_intersect_mt2"] = frame2["launches"]["sb_intersect_mt2"]
     launches["sb_intersect_mxu"] = train["launches"]["sb_intersect_mxu"]
+    launches["bvh_walk"] = frame_bvh["launches"]["bvh_walk"]
+    paths = {"frame_mt": frame, "frame_mt2": frame2, "train_step_mxu": train,
+             "frame_textured": textured, "frame_env_nee": env,
+             "frame_bvh": frame_bvh, "frame_rr_pallas": rr_pallas,
+             "frame_rr_bvh": rr_bvh}
     replaces = {
         "block_cull": ("prismarine_core_tpu_torch/csrc/cull.cu",
                        "prismarine_core_tpu/ops/pallas_cull.py:51"),
@@ -1183,21 +1489,39 @@ def main() -> int:
             "prismarine_core_tpu_torch/csrc/sb_intersect_mxu.cu",
             "prismarine_core_tpu/ops/pallas_intersect.py:397"),
     }
-    table = {"kernels": [
+    by_path = {k: {p: r["launches"][k] for p, r in paths.items()}
+               for k in KERNELS}
+    rows = [
         {"name": k, "route": "cuda", "source": replaces[k][0],
          "replaces": replaces[k][1], "launches": launches[k],
-         "launches_by_path": {"frame_mt": frame["launches"][k],
-                              "frame_mt2": frame2["launches"][k],
-                              "train_step_mxu": train["launches"][k],
-                              "frame_textured": textured["launches"][k],
-                              "frame_env_nee": env["launches"][k]},
+         "launches_by_path": by_path[k],
          "max_abs_err": max([ktimes[s][k][2] for s in ktimes]
                             + [step_errs.get(k, 0.0)]),
          "ms": ktimes["bounce1"][k][0], "plain_ms": ktimes["bounce1"][k][1],
          "bound_ms": ktimes["bounce1"][k][3],
          "bound_by": ktimes["bounce1"][k][4], "library_ms": None,
          "shape": "bounce-1 rays, round 1 of the closest query"}
-        for k in KERNELS],
+        for k in KERNELS if k != "bvh_walk"]
+    # the port's own kernel (the JAX package walks the BVH in XLA): the
+    # closest walk unsorted at bounce-1 rays, with the sorted and shadow
+    # walks beside it
+    rows.append(
+        {"name": "bvh_walk", "route": "cuda",
+         "source": "prismarine_core_tpu_torch/csrc/bvh_walk.cu",
+         "replaces": None, "launches": launches["bvh_walk"],
+         "launches_by_path": by_path["bvh_walk"],
+         "max_abs_err": max(walk["closest"]["max_abs_err"],
+                            walk["shadow"]["max_abs_err"]),
+         "ms": walk["ms"]["closest"], "plain_ms": walk["closest"]["plain_ms"],
+         "bound_ms": walk["closest"]["bound_ms"],
+         "bound_by": walk["closest"]["bound_by"], "library_ms": None,
+         "ms_sorted": walk["ms"]["closest_sorted"],
+         "sort_ms": walk["ms"]["sort"], "ms_shadow": walk["ms"]["shadow"],
+         "bound_ms_shadow_upper": walk["shadow"]["bound_ms"],
+         "plain_ms_shadow": walk["shadow"]["plain_ms"],
+         "shape": "bounce-1 rays of the bench frame, the closest query "
+                  "(sort_rays=False)"})
+    table = {"kernels": rows,
         "frame": {k: v for k, v in frame.items() if k != "launches"},
         "frame_mt2": {k: v for k, v in frame2.items() if k != "launches"},
         "train": {k: v for k, v in train.items() if k != "launches"},
@@ -1205,6 +1529,12 @@ def main() -> int:
                            if k not in ("launches", "step_errs")},
         "frame_env_nee": {k: v for k, v in env.items()
                           if k not in ("launches", "step_errs")},
+        "walk": {k: v for k, v in walk.items() if k != "turns_ms"},
+        "frame_bvh": {k: v for k, v in frame_bvh.items() if k != "launches"},
+        "frame_rr_pallas": {k: v for k, v in rr_pallas.items()
+                            if k != "launches"},
+        "frame_rr_bvh": {k: v for k, v in rr_bvh.items() if k != "launches"},
+        "features": features,
         "card": smi}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
         "s")

@@ -1,13 +1,15 @@
-"""Morton-ordered LBVH with a Karras binary radix-tree topology.
+"""Morton-ordered LBVH: the build (two topologies) and the refit.
 
-The counterpart of ``prismarine_core_tpu.accel.lbvh.build_bvh`` (topology
-"karras"): scene bounds, 30-bit Morton codes of triangle centroids, one
-stable sort, leaf AABBs over K-slot runs, the radix tree over the leaf
-clusters' first codes (every internal node finds its range and split
-independently), escape links by pointer jumping, and internal boxes by a
-bottom-up fix-point union.  All integer key work is int64 with 32-bit
-masks (torch has no uint32); the result equals the JAX build array for
-array.
+The counterpart of ``prismarine_core_tpu.accel.lbvh``: scene bounds, 30-bit
+Morton codes of triangle centroids, one stable sort, leaf AABBs over K-slot
+runs, then the internal topology: "karras" (default), a binary radix tree
+over the leaf clusters' first codes (every internal node finds its range
+and split independently), escape links by pointer jumping and internal
+boxes by a bottom-up fix-point union; or "median", the complete tree with
+heap children, static skip links and level-by-level box unions.
+``refit_bvh`` re-unions every box over a frozen topology after the
+vertices moved.  All integer key work is int64 with 32-bit masks (torch
+has no uint32); every result equals the JAX package's array for array.
 
 N = 2L-1 nodes for L leaves of ``leaf_size`` slots: internal nodes
 [0, L-1) (root 0), leaves [L-1, 2L-1); leaf j covers slots [jK, (j+1)K).
@@ -44,6 +46,34 @@ class BVH:
     @property
     def n_nodes(self) -> int:
         return self.lo.shape[0]
+
+    @property
+    def n_leaves(self) -> int:
+        return (self.n_nodes + 1) // 2
+
+    @property
+    def leaf_size(self) -> int:
+        return self.tv0.shape[0] // self.n_leaves
+
+    @property
+    def first_leaf(self) -> int:
+        return self.n_leaves - 1
+
+
+def _heap_links(depth: int):
+    """Left-child and escape links (numpy i32) of the heap-indexed
+    complete tree of ``depth`` (topology "median"): the escape of a left
+    child is its right sibling, of a right child its parent's escape, of
+    the root N (done); leaves have no left child (-1)."""
+    n = 2 ** (depth + 1) - 1
+    skip = np.full(n, n, np.int32)
+    left = np.full(n, -1, np.int32)
+    for dd in range(depth):
+        idx = np.arange(2 ** dd - 1, 2 ** (dd + 1) - 1)
+        left[idx] = (2 * idx + 1).astype(np.int32)
+        skip[2 * idx + 1] = (2 * idx + 2).astype(np.int32)
+        skip[2 * idx + 2] = skip[idx]
+    return left, skip
 
 
 def _tree_depth(n_tris: int, leaf_size: int) -> int:
@@ -162,11 +192,32 @@ def _fixpoint_boxes(kleft, kright, leaf_lo, leaf_hi, n_nodes, first_leaf):
     return lo, hi
 
 
-def build_bvh(soup, leaf_size: int = 4) -> BVH:
-    """Build the BVH (karras topology) from a (padded) triangle soup, on
-    the soup's device."""
+def _empty_to_far(lo, hi):
+    """Inverted (empty) boxes would pass the slab test: far point boxes."""
+    empty = (lo > hi).any(dim=-1, keepdim=True)
+    return (torch.where(empty, EMPTY_BOX, lo),
+            torch.where(empty, EMPTY_BOX, hi))
+
+
+def _leaf_boxes(tv0, tv1, tv2, orig, n_leaves, leaf_size):
+    """Leaf AABBs over K-slot runs; empty slots get the inverted box (the
+    neutral element of the union)."""
+    big = EMPTY_BOX
+    svm = (orig >= 0)[:, None]
+    slo = torch.where(svm, torch.minimum(torch.minimum(tv0, tv1), tv2), big)
+    shi = torch.where(svm, torch.maximum(torch.maximum(tv0, tv1), tv2), -big)
+    return (slo.reshape(n_leaves, leaf_size, 3).amin(dim=1),
+            shi.reshape(n_leaves, leaf_size, 3).amax(dim=1))
+
+
+def build_bvh(soup, leaf_size: int = 4, topology: str = "karras") -> BVH:
+    """Build the BVH from a (padded) triangle soup, on the soup's device.
+    ``topology``: "karras" (the radix tree) or "median" (the complete
+    tree)."""
     if leaf_size & (leaf_size - 1):
         raise ValueError("leaf_size must be a power of two")
+    if topology not in ("karras", "median"):
+        raise ValueError(f"unknown topology {topology!r}")
     dev = soup.device
     t = soup.capacity
     depth = _tree_depth(t, leaf_size)
@@ -202,29 +253,63 @@ def build_bvh(soup, leaf_size: int = 4) -> BVH:
     orig[:m] = torch.where(soup.valid[order][:n_slots],
                            order[:n_slots].to(torch.int32), -1)
 
-    # empty slots get the inverted box (neutral element of the union)
-    svm = (orig >= 0)[:, None]
-    slo = torch.where(svm, torch.minimum(torch.minimum(tv0, tv1), tv2), big)
-    shi = torch.where(svm, torch.maximum(torch.maximum(tv0, tv1), tv2), -big)
-    leaf_lo = slo.reshape(n_leaves, leaf_size, 3).amin(dim=1)
-    leaf_hi = shi.reshape(n_leaves, leaf_size, 3).amax(dim=1)
+    leaf_lo, leaf_hi = _leaf_boxes(tv0, tv1, tv2, orig, n_leaves,
+                                   leaf_size)
 
-    # 4. radix tree over the leaf clusters' first codes
-    slot_codes = torch.full((n_slots,), _KEY_MAX, dtype=torch.int64,
-                            device=dev)
-    slot_codes[:m] = codes_sorted[:n_slots]
-    cluster_codes = slot_codes.reshape(n_leaves, leaf_size)[:, 0]
-    kleft, kright = _karras_topology(cluster_codes)
-    skip = _escape_links(kleft, kright, n_nodes)
-    left = torch.cat([kleft.to(torch.int32),
-                      torch.full((n_leaves,), -1, dtype=torch.int32,
-                                 device=dev)])
-    lo, hi = _fixpoint_boxes(kleft, kright, leaf_lo, leaf_hi, n_nodes,
-                             first_leaf)
+    if topology == "median":
+        # 4. the complete tree: heap links, level-by-level unions
+        left_np, skip_np = _heap_links(depth)
+        left = torch.as_tensor(left_np, device=dev)
+        skip = torch.as_tensor(skip_np, device=dev)
+        lo = torch.full((n_nodes, 3), big, dtype=torch.float32, device=dev)
+        hi = torch.full((n_nodes, 3), -big, dtype=torch.float32, device=dev)
+        lo[first_leaf:] = leaf_lo
+        hi[first_leaf:] = leaf_hi
+        for dd in range(depth - 1, -1, -1):
+            child = slice(2 ** (dd + 1) - 1, 2 ** (dd + 2) - 1)
+            level = slice(2 ** dd - 1, 2 ** (dd + 1) - 1)
+            lo[level] = lo[child].reshape(-1, 2, 3).amin(dim=1)
+            hi[level] = hi[child].reshape(-1, 2, 3).amax(dim=1)
+    else:
+        # 4. radix tree over the leaf clusters' first codes
+        slot_codes = torch.full((n_slots,), _KEY_MAX, dtype=torch.int64,
+                                device=dev)
+        slot_codes[:m] = codes_sorted[:n_slots]
+        cluster_codes = slot_codes.reshape(n_leaves, leaf_size)[:, 0]
+        kleft, kright = _karras_topology(cluster_codes)
+        skip = _escape_links(kleft, kright, n_nodes)
+        left = torch.cat([kleft.to(torch.int32),
+                          torch.full((n_leaves,), -1, dtype=torch.int32,
+                                     device=dev)])
+        lo, hi = _fixpoint_boxes(kleft, kright, leaf_lo, leaf_hi, n_nodes,
+                                 first_leaf)
 
-    # inverted (empty) boxes would pass the slab test: far point boxes
-    empty = (lo > hi).any(dim=-1, keepdim=True)
-    lo = torch.where(empty, big, lo)
-    hi = torch.where(empty, big, hi)
+    lo, hi = _empty_to_far(lo, hi)
     return BVH(lo=lo, hi=hi, left=left, skip=skip, tv0=tv0, tv1=tv1,
                tv2=tv2, orig=orig)
+
+
+def refit_bvh(bvh: BVH, soup) -> BVH:
+    """Re-union every AABB over the BVH's frozen topology after the soup's
+    vertices moved (same triangle count and identity): the slots gather
+    their triangles' new vertices, and the fix-point union runs with the
+    Morton sort and the topology passes skipped.  Both topologies: the
+    right child of internal node i is ``skip[left[i]]`` (a left child's
+    escape is its right sibling)."""
+    first_leaf, n_nodes = bvh.first_leaf, bvh.n_nodes
+    trix = torch.clamp(bvh.orig, min=0).long()
+    valid = (bvh.orig >= 0)[:, None]
+    tv0, tv1, tv2 = (torch.where(valid, v[trix], 0.0)
+                     for v in (soup.v0, soup.v1, soup.v2))
+    leaf_lo, leaf_hi = _leaf_boxes(tv0, tv1, tv2, bvh.orig, bvh.n_leaves,
+                                   bvh.leaf_size)
+    if first_leaf > 0:
+        kleft = bvh.left[:first_leaf].long()
+        kright = bvh.skip[kleft].long()
+        lo, hi = _fixpoint_boxes(kleft, kright, leaf_lo, leaf_hi, n_nodes,
+                                 first_leaf)
+    else:
+        lo, hi = leaf_lo, leaf_hi
+    lo, hi = _empty_to_far(lo, hi)
+    return BVH(lo=lo, hi=hi, left=bvh.left, skip=bvh.skip, tv0=tv0, tv1=tv1,
+               tv2=tv2, orig=bvh.orig)

@@ -1,10 +1,12 @@
-"""Pinhole camera + primary ray generation.
+"""Camera model + primary ray generation.
 
 The counterpart of ``prismarine_core_tpu.models.camera``: rays come from a
 look-at frame in closed form, one per (spp, row, column) in scanline
-order, with per-ray jitter inside the pixel.  The 360 and thin-lens modes
-and the 16x8 tile lane order are ROADMAP queue 1 items
-(``RenderConfig`` checks raise for them).
+order, with per-ray jitter inside the pixel; ``cfg.camera_360`` maps the
+frame to an equirectangular panorama and ``cfg.dof`` moves each origin
+onto a thin lens aimed at the focal distance.  The 16x8 tile lane order
+(``primary_tile_order``) is a ROADMAP queue 1 item (``RenderConfig``
+checks raise for it).
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def generate_rays(camera: Camera, cfg: RenderConfig,
                   cam_samples: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Primary rays (origins, dirs) f32[R,3], R = spp*H*W laid out as
-    [spp, H, W] row-major; cam_samples f32[R,4] (jitter xy in 0:2)."""
+    [spp, H, W] row-major; cam_samples f32[R,4] (jitter xy in 0:2, the
+    lens sample in 2:4)."""
     w, h, spp = cfg.width, cfg.height, cfg.spp
     n = spp * h * w
     if cam_samples.shape[0] != n:
@@ -65,10 +68,32 @@ def generate_rays(camera: Camera, cfg: RenderConfig,
     u = (px + jitter[:, 0]) / w
     v = (py + jitter[:, 1]) / h
     fwd, right, cup = camera.basis()
+
+    if cfg.camera_360:
+        # equirectangular: longitude from u, latitude from v
+        lon = (u * 2.0 - 1.0) * math.pi
+        lat = (0.5 - v) * math.pi
+        cl = torch.cos(lat)
+        local = torch.stack([cl * torch.sin(lon), torch.sin(lat),
+                             cl * torch.cos(lon)], dim=-1)
+        d = (local[:, 0:1] * right + local[:, 1:2] * cup
+             + local[:, 2:3] * fwd)
+        return camera.eye.expand(d.shape), pm.normalize(d)
+
     tan_half = torch.tan(camera.fov_y * 0.5)
     aspect = w / h
     sx = (u * 2.0 - 1.0) * tan_half * aspect
     sy = (1.0 - v * 2.0) * tan_half
     d = pm.normalize(fwd + sx[:, None] * right + sy[:, None] * cup)
     o = camera.eye.expand(d.shape)
+
+    if cfg.dof:
+        # thin lens: the origin moves on the aperture disk, the ray aims
+        # at the point the pinhole ray reaches at the focal distance
+        r = torch.sqrt(cam_samples[:, 2:3]) * cfg.dof_focal_radius
+        phi = cam_samples[:, 3:4] * (2.0 * math.pi)
+        lens = r * (torch.cos(phi) * right + torch.sin(phi) * cup)
+        focus = o + d * cfg.dof_focus_radius
+        o = o + lens
+        d = pm.normalize(focus - o)
     return o, d

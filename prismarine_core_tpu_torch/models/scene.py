@@ -54,11 +54,27 @@ class Scene:
         )
         return scene.with_bvh(leaf_size) if build_bvh else scene
 
-    def with_bvh(self, leaf_size: int = 4) -> "Scene":
-        """(Re)build the BVH and its packet set."""
+    def with_bvh(self, leaf_size: int = 4,
+                 topology: str = "karras") -> "Scene":
+        """(Re)build the BVH (``topology`` "karras" or "median") and its
+        packet set."""
         from prismarine_core_tpu_torch.accel.lbvh import build_bvh
         from prismarine_core_tpu_torch.accel.packet import build_packet_set
-        bvh = build_bvh(self.triangles, leaf_size=leaf_size)
+        bvh = build_bvh(self.triangles, leaf_size=leaf_size,
+                        topology=topology)
+        return dataclasses.replace(self, bvh=bvh,
+                                   packets=build_packet_set(bvh))
+
+    def with_refit(self) -> "Scene":
+        """Refit the existing BVH's boxes over its frozen topology after the
+        soup's vertices moved (same triangle count and identity), and
+        rebuild the packet view from the refit BVH."""
+        from prismarine_core_tpu_torch.accel.lbvh import refit_bvh
+        from prismarine_core_tpu_torch.accel.packet import build_packet_set
+        if self.bvh is None:
+            raise ValueError("with_refit() needs an existing BVH — "
+                             "build one with with_bvh() first")
+        bvh = refit_bvh(self.bvh, self.triangles)
         return dataclasses.replace(self, bvh=bvh,
                                    packets=build_packet_set(bvh))
 

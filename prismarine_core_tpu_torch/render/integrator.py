@@ -14,9 +14,13 @@ Light transport (as in the JAX package):
     toward the environment (balance-heuristic MIS with the miss pickup).
 
 Textured scenes modulate albedo, emissive and the specular terms by their
-texture fetches and perturb the shading normal by the bump map.
+texture fetches and perturb the shading normal by the bump map.  With
+``cfg.rr_start_bounce`` Russian roulette retires lanes from that bounce on
+(survivors reweighted by 1/q); an ``active`` mask (interlacing) retires
+lanes before the first bounce.
 
-The port runs ``intersector="brute"`` (the oracle) and ``"pallas"`` (the
+The port runs ``intersector="brute"`` (the oracle), ``"bvh"`` (the
+default: the skip-link walk, ``accel/traverse.py``) and ``"pallas"`` (the
 packet query on the hand-written kernels); ``check_supported`` raises for
 knobs outside that slice.
 """
@@ -54,15 +58,30 @@ def _pallas_kwargs(cfg: RenderConfig, any_hit: bool) -> dict:
     return kw
 
 
+def _need_bvh(scene):
+    if scene.bvh is None:
+        raise ValueError(
+            "cfg.intersector='bvh' but scene.bvh is None — build it "
+            "with scene.with_bvh() (Scene.assemble does by default)")
+
+
 def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
                 with_order: bool = False, order=None):
     """Closest hit through the configured intersector.  ``t_cap`` zeroes
-    lanes whose result is unused (the packet query drops them);
-    ``with_order`` also returns the packet query's coherence sort (None
-    for "brute") for the same bounce's shadow query."""
+    lanes whose result is unused (the packet query drops them; "bvh", as
+    in the JAX package, walks every lane to INF_DIST); ``with_order``
+    also returns the packet query's coherence sort (None for "brute" and
+    "bvh") for the same bounce's shadow query."""
     if cfg.intersector == "brute":
         hit, order = intersect_closest_brute(scene.triangles, o, d,
                                              block=cfg.tri_block), None
+    elif cfg.intersector == "bvh":
+        from prismarine_core_tpu_torch.accel.traverse import (
+            intersect_closest_bvh)
+        _need_bvh(scene)
+        hit, order = intersect_closest_bvh(
+            scene.bvh, scene.triangles, o, d, chunk=cfg.traverse_chunk,
+            sort=cfg.sort_rays), None
     elif cfg.intersector == "pallas":
         from prismarine_core_tpu_torch.accel import packet as pk
         if scene.packets is None:
@@ -83,6 +102,11 @@ def occluded(scene, o, d, t_max, cfg: RenderConfig, order=None):
     if cfg.intersector == "brute":
         return occluded_brute(scene.triangles, o, d, t_max,
                               block=cfg.tri_block)
+    if cfg.intersector == "bvh":
+        from prismarine_core_tpu_torch.accel.traverse import occluded_bvh
+        _need_bvh(scene)
+        return occluded_bvh(scene.bvh, scene.triangles, o, d, t_max,
+                            chunk=cfg.traverse_chunk, sort=cfg.sort_rays)
     if cfg.intersector == "pallas":
         from prismarine_core_tpu_torch.accel import packet as pk
         return pk.occluded_pallas(scene.bvh, scene.packets, scene.triangles,
@@ -233,15 +257,16 @@ def _env_nee_contribution(scene, cfg: RenderConfig, p, n, diffuse_beta, u,
 def make_bounce_step(scene, cfg: RenderConfig):
     """The per-bounce step: (carry, u f32[R,11]) -> (carry, stats i32[5]).
     The carry is (o, d, beta, radiance, alive, prev_pdf, miss_dir,
-    miss_beta, miss_pdf); the two pdfs (the bsdf pdf of each lane's last
-    continuation, and of its miss) feed env-NEE MIS and stay zero
-    without ``cfg.env_nee``."""
+    miss_beta, miss_pdf, bounce index); the two pdfs (the bsdf pdf of each
+    lane's last continuation, and of its miss) feed env-NEE MIS and stay
+    zero without ``cfg.env_nee``; the bounce index (a Python int) turns
+    Russian roulette on."""
     kinds = (None if getattr(scene.textures, "stub", False)
              else scene.materials.kinds_bound)
 
     def step(carry, u):
         (o, d, beta, radiance, alive, prev_pdf, miss_dir, miss_beta,
-         miss_pdf) = carry
+         miss_pdf, bounce_i) = carry
         t_cap = torch.where(alive, INF_DIST, 0.0)
         hit, order = closest_hit(scene, o, d, cfg, t_cap=t_cap,
                                  with_order=True)
@@ -333,6 +358,16 @@ def make_bounce_step(scene, cfg: RenderConfig):
 
         new_alive = on_surf & (pm.length(new_beta) > cfg.min_throughput)
 
+        # Russian roulette from bounce cfg.rr_start_bounce on: survive with
+        # probability q = clamp(max channel of throughput, rr_min_q, 1),
+        # survivors reweighted by 1/q (unbiased)
+        if 0 < cfg.rr_start_bounce <= bounce_i:
+            q = torch.clamp(new_beta.amax(dim=-1), cfg.rr_min_q, 1.0)
+            survive = u[:, smp.S_RR] < q
+            new_alive = new_alive & survive
+            new_beta = torch.where(survive[:, None], new_beta / q[:, None],
+                                   new_beta)
+
         new_o = torch.where(on_surf[:, None], new_o, o)
         new_d = torch.where(on_surf[:, None], new_d, d)
         new_beta = torch.where(on_surf[:, None], new_beta, beta)
@@ -344,7 +379,7 @@ def make_bounce_step(scene, cfg: RenderConfig):
             n_shadow,                           # NEE shadow lanes
         ])
         return ((new_o, new_d, new_beta, radiance, new_alive, prev_pdf,
-                 miss_dir, miss_beta, miss_pdf), stats)
+                 miss_dir, miss_beta, miss_pdf, bounce_i + 1), stats)
 
     return step
 
@@ -365,56 +400,80 @@ def _env_pickup(scene, cfg: RenderConfig, radiance, miss_dir, miss_beta,
     return radiance + miss_beta * env
 
 
-def initial_carry(o, d):
+def initial_carry(o, d, active=None):
     """The bounce loop's carry for camera rays o, d f32[R,3]: unit
-    throughput, no radiance, every lane alive, delta (zero) pdfs."""
+    throughput, no radiance, every lane alive (or the lanes of ``active``
+    bool[R]), delta (zero) pdfs, bounce 0."""
     r = o.shape[0]
     dev = o.device
     return (
         o, d,
         torch.ones((r, 3), dtype=torch.float32, device=dev),
         torch.zeros((r, 3), dtype=torch.float32, device=dev),
-        torch.ones((r,), dtype=torch.bool, device=dev),
+        (torch.ones((r,), dtype=torch.bool, device=dev) if active is None
+         else active),
         torch.zeros((r,), dtype=torch.float32, device=dev),   # prev pdf
         torch.nn.functional.pad(                              # miss d
             torch.ones((r, 1), device=dev), (2, 0)),
         torch.zeros((r, 3), dtype=torch.float32, device=dev),  # miss beta
         torch.zeros((r,), dtype=torch.float32, device=dev),   # miss pdf
+        0,                                                     # bounce
     )
 
 
-def trace(scene, cfg: RenderConfig, o, d, bounce_samples):
+def interlace_mask(cfg: RenderConfig, stage, device=None) -> torch.Tensor:
+    """Checkerboard pixel mask bool[H,W] of interlaced rendering: pixel
+    (x, y) is active when (x + y) % 2 != stage % 2."""
+    x = torch.arange(cfg.width, device=device)[None, :]
+    y = torch.arange(cfg.height, device=device)[:, None]
+    return ((x + y) % 2) != (stage % 2)
+
+
+def trace(scene, cfg: RenderConfig, o, d, bounce_samples, active=None):
     """Trace rays through ``cfg.max_bounces`` bounces.  o, d f32[R,3];
-    bounce_samples f32[B,R,11].  Returns (radiance f32[R,3],
+    bounce_samples f32[B,R,11]; ``active`` bool[R] optionally masks lanes
+    off from the start (interlacing; under "pallas" they query with
+    t_cap 0, as dead lanes do).  Returns (radiance f32[R,3],
     stats i32[B,5])."""
-    carry = initial_carry(o, d)
+    carry = initial_carry(o, d, active)
     step = make_bounce_step(scene, cfg)
     stats = []
     for b in range(bounce_samples.shape[0]):
         carry, st = step(carry, bounce_samples[b])
         stats.append(st)
-    _, _, _, radiance, _, _, miss_dir, miss_beta, miss_pdf = carry
+    _, _, _, radiance, _, _, miss_dir, miss_beta, miss_pdf, _ = carry
     radiance = _env_pickup(scene, cfg, radiance, miss_dir, miss_beta,
                            miss_pdf)
     return radiance, torch.stack(stats)
 
 
+def trace_radiance(scene, cfg: RenderConfig, o, d, bounce_samples,
+                   active=None):
+    """``trace``'s radiance alone."""
+    return trace(scene, cfg, o, d, bounce_samples, active)[0]
+
+
 def render_with_samples(scene, camera: Camera, cfg: RenderConfig,
-                        cam_samples, bounce_samples,
+                        cam_samples, bounce_samples, interlace_stage=0,
                         with_stats: bool = False):
     """Deterministic render given explicit uniforms: linear-HDR image
-    f32[H,W,3] (mean over spp).  ``with_stats=True`` also returns
-    i32[bounces, 5] per-bounce lane counters [entering, surface,
-    env-miss, surviving, NEE-shadow]."""
+    f32[H,W,3] (mean over spp).  With ``cfg.interlace`` the pixels of the
+    inactive checkerboard parity of ``interlace_stage`` come back zero.
+    ``with_stats=True`` also returns i32[bounces, 5] per-bounce lane
+    counters [entering, surface, env-miss, surviving, NEE-shadow]."""
     check_supported(cfg)
     o, d = generate_rays(camera, cfg, cam_samples)
-    radiance, stats = trace(scene, cfg, o, d, bounce_samples)
+    active = None
+    if cfg.interlace:
+        active = interlace_mask(cfg, interlace_stage,
+                                device=o.device).reshape(-1).repeat(cfg.spp)
+    radiance, stats = trace(scene, cfg, o, d, bounce_samples, active)
     img = radiance.reshape(cfg.spp, cfg.height, cfg.width, 3).mean(dim=0)
     return (img, stats) if with_stats else img
 
 
 def render(scene, camera: Camera, cfg: RenderConfig,
-           generator: torch.Generator) -> torch.Tensor:
+           generator: torch.Generator, interlace_stage=0) -> torch.Tensor:
     """Draw the frame's sample arrays from ``generator`` (on the scene's
     device) and render."""
     dev = scene.device
@@ -424,4 +483,5 @@ def render(scene, camera: Camera, cfg: RenderConfig,
     else:
         cam, bounce = smp.make_sample_arrays(generator, cfg.n_rays,
                                              cfg.max_bounces, device=dev)
-    return render_with_samples(scene, camera, cfg, cam, bounce)
+    return render_with_samples(scene, camera, cfg, cam, bounce,
+                               interlace_stage)

@@ -50,8 +50,9 @@ class RenderConfig:
     tri_block: int = 512
     bvh_leaf_size: int = 4
     #: "brute" | "bvh" | "packet" | "pallas" | "pallas_sharded"; the port
-    #: runs "brute" and "pallas" ("pallas" = the packet query on the
-    #: hand-written kernels, accel/packet.py)
+    #: runs "brute", "bvh" (the skip-link walk, accel/traverse.py) and
+    #: "pallas" (the packet query on the hand-written kernels,
+    #: accel/packet.py)
     intersector: str = "bvh"
     mesh: object = None
     traverse_chunk: int = 0
@@ -102,7 +103,6 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
 
-_FEATURES = "ROADMAP queue 1, 'Remaining integrator and camera features'"
 _KNOBS = "ROADMAP queue 1, 'Packet-path knobs off the main path'"
 _INTERSECTORS = "ROADMAP queue 1, 'Other intersectors'"
 _MULTI = "ROADMAP queue 1, 'Multi-GPU'"
@@ -113,16 +113,17 @@ def _unsupported(what: str, item: str):
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for any knob outside the ported slice."""
-    if cfg.rr_start_bounce > 0:
-        _unsupported("rr_start_bounce > 0 (Russian roulette)", _FEATURES)
-    for flag in ("interlace", "dof", "camera_360"):
-        if getattr(cfg, flag):
-            _unsupported(flag, _FEATURES)
+    """Raise NotImplementedError for any knob outside the ported slice
+    (ValueError for an intersector no package has)."""
     if cfg.mesh is not None:
         _unsupported("mesh", _MULTI)
-    if cfg.intersector not in ("brute", "pallas"):
-        _unsupported(f"intersector={cfg.intersector!r}", _INTERSECTORS)
+    if cfg.intersector == "packet":
+        _unsupported("intersector='packet' (the XLA packet path)",
+                     _INTERSECTORS)
+    if cfg.intersector == "pallas_sharded":
+        _unsupported("intersector='pallas_sharded'", _MULTI)
+    if cfg.intersector not in ("brute", "bvh", "pallas"):
+        raise ValueError(f"unknown intersector {cfg.intersector!r}")
     if cfg.intersector == "pallas":
         check_query_knobs(
             cull_impl=cfg.cull_impl, sort_mode=cfg.sort_mode,

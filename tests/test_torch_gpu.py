@@ -526,3 +526,108 @@ def test_env_shadow_query_inputs_equal_plain(cuda_device, monkeypatch):
     out = si.sb_intersect(*sargs)
     ref = si.sb_intersect_plain(*sargs)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def _walk_case(case, dev):
+    """(bvh, o, d, t_cap) of one edge case of the BVH walk."""
+    from prismarine_core_tpu_torch.models import procedural
+    if case.startswith("hall"):
+        scene = procedural.make_hall_scene(target_tris=3000, device=dev)
+        bvh = build_bvh(scene.triangles, leaf_size=4,
+                        topology=case.split("-")[1])
+        o, d, t_cap = _rays(4096, 51, dev)
+        o = o * torch.tensor([1.0, 0.25, 0.4], device=dev) + torch.tensor(
+            [0.0, 2.0, 0.0], device=dev)
+        return bvh, o.contiguous(), d, t_cap
+    if case == "one-tri":
+        soup = TriangleSoup.from_arrays(
+            np.float32([[-1, -1, 0], [1, -1, 0], [0, 1, 0]]), [[0, 1, 2]],
+            device=dev)
+        bvh = build_bvh(soup, leaf_size=4)
+        o, d, t_cap = _rays(512, 52, dev)
+        d = torch.where(torch.arange(512, device=dev)[:, None] % 2 == 0,
+                        -o / o.norm(dim=-1, keepdim=True), d)   # aimed
+        return bvh, o, d.contiguous(), t_cap
+    n_tris = 10 if case == "padded" else 300
+    soup, bvh, _ = _scene(n_tris, 53, dev)
+    o, d, t_cap = _rays(1024, 54, dev,
+                        live_frac=0.5 if case == "t-cap-0" else 1.0)
+    if case == "zero-dir":
+        # axis-aligned directions (+-0 components), and components below
+        # the 1e-12 guard
+        axes = torch.cat([torch.eye(3), -torch.eye(3)]).to(dev)
+        d[:600] = axes.repeat(100, 1)
+        d[600:700, 1] = 1e-13
+        d[700:800, 2] = -0.0
+    elif case == "inside-box":
+        c = (soup.v0 + soup.v1 + soup.v2)[:n_tris] / 3.0
+        o = c[torch.arange(o.shape[0], device=dev) % n_tris].contiguous()
+    elif case == "short-caps":
+        t_cap = torch.full_like(t_cap, 3.0)
+    elif case == "beyond-inf":
+        t_cap = torch.full_like(t_cap, 2.0 * INF_DIST)
+    return bvh, o, d, t_cap
+
+
+WALK_CASES = ["random", "zero-dir", "t-cap-0", "inside-box", "padded",
+              "one-tri", "short-caps", "beyond-inf", "hall-karras",
+              "hall-median"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_bvh_walk_equal_plain(cuda_device, case, any_hit):
+    """The BVH walk kernel equals its plain version (the lockstep walk)
+    on (t, slot) exactly, one launch counted."""
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
+    bvh, o, d, t_cap = _walk_case(case, cuda_device)
+    launches = bw.bvh_walk.launches
+    t, slot = bw.bvh_walk(bvh, o, d, t_cap, any_hit)
+    torch.cuda.synchronize()
+    assert bw.bvh_walk.launches == launches + 1
+    tp, slot_p, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
+    assert torch.equal(t, tp) and torch.equal(slot.long(), slot_p)
+    if case not in ("t-cap-0", "beyond-inf"):
+        assert int((slot >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", [dict(), dict(sort_rays=True,
+                                                traverse_chunk=1024)],
+                         ids=["default", "sorted-chunked"])
+def test_bvh_cornell_frame_equal_plain(cuda_device, knobs, monkeypatch):
+    """The "bvh" cornell frame on the walk kernel (8 launches: a closest
+    and a shadow query a bounce, one chunk each at 64x64 = 4,096 rays
+    unless chunked) equals its plain-version frame bit for bit."""
+    from prismarine_core_tpu_torch.accel import traverse
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.models.scene import make_cornell_scene
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
+    from prismarine_core_tpu_torch.ops.sampling import make_sample_arrays
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    dev = cuda_device
+    scene = make_cornell_scene(device=dev)
+    cam = Camera.look_at(eye=(0.0, 0.0, 3.4), target=(0.0, 0.0, 0.0),
+                         fov_y_deg=50.0, device=dev)
+    cfg = RenderConfig(width=64, height=64, max_bounces=4, **knobs)
+    assert cfg.intersector == "bvh"
+    samples = make_sample_arrays(torch.Generator(device=dev).manual_seed(0),
+                                 cfg.n_rays, cfg.max_bounces)
+    launches = bw.bvh_walk.launches
+    img, stats = render_with_samples(scene, cam, cfg, *samples,
+                                     with_stats=True)
+    n = bw.bvh_walk.launches - launches
+    assert n == 8 * (4 if knobs else 1)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-2
+
+    def plain(bvh, o, d, t_cap, any_hit=False):
+        t, slot, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
+        return t, slot.to(torch.int32)
+    monkeypatch.setattr(traverse, "bvh_walk", plain)
+    img_p, stats_p = render_with_samples(scene, cam, cfg, *samples,
+                                         with_stats=True)
+    assert bw.bvh_walk.launches - launches == n
+    assert torch.equal(img, img_p) and torch.equal(stats, stats_p)

@@ -82,8 +82,9 @@ CORNELL = dict(eye=(0.0, 0.0, 3.4), target=(0.0, 0.0, 0.0), fov=50.0)
 HALL = dict(eye=(-10.0, 2.2, 0.0), target=(6.0, 1.6, 0.0), fov=60.0)
 
 
-@pytest.mark.parametrize("knobs", [dict(intersector="brute"), BENCH_KNOBS],
-                         ids=["brute", "pallas"])
+@pytest.mark.parametrize("knobs", [dict(intersector="brute"),
+                                   dict(intersector="bvh"), BENCH_KNOBS],
+                         ids=["brute", "bvh", "pallas"])
 def test_cornell_matches_jax(knobs):
     cfg_kw = dict(width=32, height=32, spp=1, max_bounces=3, **knobs)
     (img, st), (ref, rst) = render_both(
@@ -99,8 +100,9 @@ def small_halls():
             tproc.make_hall_scene(target_tris=3000, device=CPU))
 
 
-@pytest.mark.parametrize("knobs", [dict(intersector="brute"), BENCH_KNOBS],
-                         ids=["brute", "pallas"])
+@pytest.mark.parametrize("knobs", [dict(intersector="brute"),
+                                   dict(intersector="bvh"), BENCH_KNOBS],
+                         ids=["brute", "bvh", "pallas"])
 def test_small_hall_matches_jax(small_halls, knobs):
     cfg_kw = dict(width=32, height=24, spp=1, max_bounces=2, **knobs)
     (img, st), (ref, rst) = render_both(*small_halls, **HALL,
@@ -143,16 +145,17 @@ def test_render_entry_point_and_unported_knobs():
     b = tint.render(scene, cam, cfg, torch.Generator().manual_seed(1))
     assert torch.equal(a, b) and torch.isfinite(a).all()
     assert a.shape == (16, 16, 3) and a.mean() > 1e-2
-    for bad in (dict(rr_start_bounce=1),
-                dict(interlace=True), dict(dof=True),
-                dict(camera_360=True),
-                dict(reuse_bounce_order=True), dict(primary_identity=True),
+    for bad in (dict(reuse_bounce_order=True), dict(primary_identity=True),
                 dict(primary_tile_order=True), dict(sort_mode="group"),
                 dict(cull_impl="xla"),
-                dict(closest_strategy="rounds"), dict(intersector="bvh")):
+                dict(closest_strategy="rounds"), dict(intersector="packet"),
+                dict(intersector="pallas_sharded")):
         with pytest.raises(NotImplementedError):
             tint.render(scene, cam, cfg.replace(**bad),
                         torch.Generator().manual_seed(1))
     with pytest.raises(ValueError):            # no such kernel form
         tint.render(scene, cam, cfg.replace(kernel_form="mt3"),
+                    torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError):            # no such intersector
+        tint.render(scene, cam, cfg.replace(intersector="octree"),
                     torch.Generator().manual_seed(1))
