@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch port: the bench frame, the
 inverse-rendering train step, the textured hall frame, the env-NEE frame,
 the BVH walk and the "bvh" frame (RenderConfig's default intersector),
-Russian roulette, interlacing, depth of field and the 360 camera on one
-NVIDIA GPU.
+Russian roulette, interlacing, depth of field, the 360 camera and the
+boundary (edge-sampled) gradients on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -104,13 +104,31 @@ Phases (any failure exits non-zero):
  13. features — on "pallas": interlace stages 0 and 1 (each inactive
                 parity exactly 0; their sum against the "mt" frame by the
                 gate), the DOF frame and the 360 frame (finite, mean >
-                1e-2).
+                1e-2);
+ 14. edge     — render_with_edge_gradients(shadow_term=True) on the
+                env-NEE frame under "bvh" with 2^18 edge samples, the
+                gradient of sum(img * W) (W seeded) with respect to the
+                corner vertices and the camera eye (phase_edge): the value
+                bit-identical to render_with_samples, the walk launched
+                44 times (edge_launches) and nothing else, the boundary
+                images' vertex gradient non-zero on >= 1,000 entries and
+                equal to the plain walk's up to the backward's atomic
+                order (relative L2 <= 1e-5, cosine >= 0.99999); the same
+                call under "pallas" (value gate, 60 launches of each
+                "mt"-path kernel, the boundary images' vertex gradient
+                equal to the one on the kernels' plain versions up to the
+                atomic order, as above, and within relative L2 1e-3 and
+                cosine 0.99999 of "bvh"'s); the finite-difference cases of
+                tests/test_edge_gradients.py on the card under "bvh"
+                (tests/torch_edge_cases.py); forward, backward and
+                boundary-only times, peak memory and one profiled rep.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
 JSON (the five ported kernels and bvh_walk, with their launches on each
-path, and every frame's and the step's results), nvidia-smi's line, and ``{"ok": true,
-"device": {...}}``.  Nothing falls back to the CPU.
+path, and every frame's, the step's and the edge path's results),
+nvidia-smi's line, and ``{"ok": true, "device": {...}}``.  The script
+exits 0 only when every phase passes.  Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -165,6 +183,17 @@ ENV_STEP_QUERIES = STEP_QUERIES + ("env shadow",)
 #: profiler ranges around the textured frame's texture fetches and the
 #: gathers inside them (chip_smoke's own wrappers, ``texture_ranges``)
 TEX_FETCH, TEX_GATHER = "texture fetch", "texture gather"
+#: phase 14: edge samples of the boundary terms at full width, the
+#: gradient leaves (the corner vertices and the camera eye), the bound
+#: (relative L2, least cosine) of a boundary gradient against the same on
+#: the kernels' plain versions (the same forward bits: only the backward's
+#: atomic order differs), and that of the "pallas" boundary gradient
+#: against the "bvh" one (PERF.md, PR 8: a few dozen of the side paths'
+#: query lanes tie-break differently; 1.25e-4 measured)
+EDGE_SAMPLES = 2 ** 18
+EDGE_LEAVES = ("v0", "v1", "v2")
+EDGE_PLAIN_BOUND = (1e-5, 0.99999)
+EDGE_PALLAS_BOUND = (1e-3, 0.99999)
 #: the profiler's own range around each scheduled step (a span, no op)
 STEP_RANGE = "ProfilerStep"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
@@ -655,6 +684,19 @@ def host_syncs(fn) -> collections.Counter:
 
 
 @contextlib.contextmanager
+def plain_walk():
+    """Run the "bvh" queries on the walk's plain version."""
+    from prismarine_core_tpu_torch.accel import traverse
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
+    saved = traverse.bvh_walk
+    traverse.bvh_walk = bw.bvh_walk_plain_hits
+    try:
+        yield
+    finally:
+        traverse.bvh_walk = saved
+
+
+@contextlib.contextmanager
 def plain_versions():
     """Run the packet query on the kernels' plain versions (parity
     phase only)."""
@@ -1018,10 +1060,10 @@ def phase_walk(scene, cam, cfg, dev):
         t, slot = bw.bvh_walk(bvh, o, d, t_cap, any_hit)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tp, sp, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
+        tp, sp = bw.bvh_walk_plain_hits(bvh, o, d, t_cap, any_hit)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        require(torch.equal(t, tp) and torch.equal(slot.long(), sp),
+        require(torch.equal(t, tp) and torch.equal(slot, sp),
                 f"bvh_walk {label} (t, slot) != plain")
         stats = tr.traversal_stats(bvh, o, d, t_cap)
         ops = SLAB_OPS * stats["steps"] + MT_OPS * k * stats["leaf_visits"]
@@ -1193,6 +1235,207 @@ def phase_features(scene, cam, cfg, dev, mt_img, samples):
         require(mean > 1e-2, f"{tag}: mean {mean}")
         out[tag] = dict(ms=ms, launches=launches, mean=mean)
     return out
+
+
+def edge_launches(n_lights, per_query):
+    """Launches of each kernel on ``render_with_edge_gradients(...,
+    shadow_term=True)`` over the env-NEE frame: the primal frame and each
+    of the two side paths make ``per_query[0]`` a bounce (closest, sun NEE
+    and env NEE queries), and each shadow term (one a sphere light, one
+    the env sun) two closest queries (receivers, camera visibility) and
+    two any-hit probes, ``per_query[1]`` and ``per_query[2]`` each."""
+    per_bounce, closest, any_hit = per_query
+    return (3 * BOUNCES * per_bounce
+            + (n_lights + 1) * 2 * (closest + any_hit))
+
+
+def edge_cases_module():
+    """tests/torch_edge_cases.py of this checkout, by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_edge_cases", REPO / "tests" / "torch_edge_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_edge(scene, cam, cfg, dev):
+    """Phase 14: ``render_with_edge_gradients(shadow_term=True)`` on the
+    env-NEE frame under "bvh", EDGE_SAMPLES edge samples, the loss
+    sum(img * W) with W drawn from a seeded generator, gradients with
+    respect to the corner vertices and the camera eye.  Gates: the value
+    equals ``render_with_samples`` bit for bit; the walk launched
+    ``edge_launches`` times and no other kernel; the boundary images'
+    vertex gradient finite, non-zero on >= 1,000 entries, and with the
+    walk's plain version in the kernel's place within EDGE_PLAIN_BOUND;
+    the same call once under "pallas" (value gate, the three "mt"-path
+    kernels launched ``edge_launches`` times, the boundary gradient within
+    EDGE_PLAIN_BOUND of the one on the kernels' plain versions and within
+    EDGE_PALLAS_BOUND of "bvh"'s); the FD cases of
+    tests/test_edge_gradients.py on the card under "bvh".  Times: forward,
+    backward and the boundary images alone (forward + backward), 3 reps
+    after a warm one, one sync each; peak memory; one profiled rep."""
+    import torch
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        apply_params, init_params)
+    from prismarine_core_tpu_torch.render.edge_grad import (
+        boundary_images, make_edge_sample_arrays, render_with_edge_gradients)
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    t_phase = time.perf_counter()
+    ec = edge_cases_module()
+    cfg_b = cfg.replace(env_nee=True, intersector="bvh")
+    cfg_p = cfg.replace(env_nee=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cam_s, bounce_s = make_coherent_sample_arrays(gen, cfg_b, block=(64, 64))
+    eu, ebs = make_edge_sample_arrays(gen, EDGE_SAMPLES, BOUNCES)
+    w = torch.rand((H, W, 3), generator=gen, device=dev)
+    base = {k: v.detach() for k, v in init_params(scene).items()}
+    n_lights = scene.lights.count
+
+    def forward(c, boundary_only=False):
+        p = {k: v.clone().requires_grad_(k in EDGE_LEAVES)
+             for k, v in base.items()}
+        eye = cam.eye.detach().clone().requires_grad_(True)
+        sc, cm = apply_params(scene, p), dataclasses.replace(cam, eye=eye)
+        img = (boundary_images(sc, cm, c, eu, ebs, shadow_term=True)
+               if boundary_only else render_with_edge_gradients(
+                   sc, cm, c, cam_s, bounce_s, eu, ebs, shadow_term=True))
+        return img, [p[k] for k in EDGE_LEAVES] + [eye]
+
+    def backward(img, xs):
+        return torch.autograd.grad((img * w).sum(), xs)
+
+    def value_gate(c, img, tag):
+        ref = render_with_samples(scene, cam, c, cam_s, bounce_s)
+        require(img.shape == (H, W, 3), f"{tag} image shape")
+        require(bool(torch.isfinite(img).all()), f"{tag}: non-finite image")
+        require(torch.equal(img.detach(), ref), f"{tag}: value != "
+                "render_with_samples")
+
+    # the main-path run: counters from 0, read right after
+    read = zero_launches()
+    img, xs = forward(cfg_b)
+    grads = backward(img, xs)
+    torch.cuda.synchronize()
+    launches = read()
+    n_walk = edge_launches(n_lights, (3, 1, 1))
+    log(f"[edge bvh] launches {launches} (expected bvh_walk {n_walk})")
+    for k, n in launches.items():
+        require(n == (n_walk if k == "bvh_walk" else 0),
+                f"edge bvh {k}: {n} launches")
+    value_gate(cfg_b, img, "edge bvh")
+    _finite_nonzero(dict(zip(EDGE_LEAVES + ("eye",), grads)), "edge gradient")
+
+    # the boundary images alone, on the kernel and on the plain walk
+    gb = backward(*forward(cfg_b, True))
+    nonzero = sum(int((g != 0).sum()) for g in gb[:3])
+    require(all(bool(torch.isfinite(g).all()) for g in gb),
+            "boundary gradient not finite")
+    require(nonzero >= 1000, f"boundary gradient non-zero on {nonzero}")
+    t0 = time.perf_counter()
+    with plain_walk():
+        gb_plain = backward(*forward(cfg_b, True))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    cos_plain, rel_plain = ec.cos_rel(gb[:3], gb_plain[:3])
+    log(f"[edge bvh] boundary vertex gradient non-zero on {nonzero} "
+        f"entries; against the plain walk ({plain_s:.1f} s): cosine "
+        f"{cos_plain:.9f}, relative L2 {rel_plain:.3g}; eye "
+        f"{gb[3].tolist()} vs {gb_plain[3].tolist()}")
+    require(rel_plain <= EDGE_PLAIN_BOUND[0]
+            and cos_plain >= EDGE_PLAIN_BOUND[1],
+            f"edge bvh vs plain walk: cosine {cos_plain}, rel {rel_plain}")
+
+    # times: 3 reps after a warm one, one sync each
+    fwd, bwd, bnd = [], [], []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, xs = forward(cfg_b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        backward(img, xs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        backward(*forward(cfg_b, True))
+        torch.cuda.synchronize()
+        if rep:
+            fwd.append(1e3 * (t1 - t0))
+            bwd.append(1e3 * (t2 - t1))
+            bnd.append(1e3 * (time.perf_counter() - t2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    backward(*forward(cfg_b))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = dict(forward_ms=sum(fwd) / 3, backward_ms=sum(bwd) / 3,
+               boundary_ms=sum(bnd) / 3, forward_reps_ms=fwd,
+               backward_reps_ms=bwd, boundary_reps_ms=bnd,
+               peak_mem_bytes=peak, launches=launches,
+               boundary_nonzero=nonzero, plain_walk_cos=cos_plain,
+               plain_walk_rel=rel_plain, edge_samples=EDGE_SAMPLES,
+               mean=float(img.detach().mean()))
+    log(f"[edge bvh] forward {res['forward_ms']:.3f} ms, backward "
+        f"{res['backward_ms']:.3f} ms, boundary images alone (forward + "
+        f"backward) {res['boundary_ms']:.3f} ms (reps {fwd} / {bwd} / "
+        f"{bnd}); peak memory {peak / 2**20:.1f} MiB; mean "
+        f"{res['mean']:.6f}")
+    res["profile"] = profile_once(lambda: backward(*forward(cfg_b)),
+                                  "edge bvh")
+
+    # the same call once under "pallas"
+    read = zero_launches()
+    img_p, xs_p = forward(cfg_p)
+    backward(img_p, xs_p)
+    torch.cuda.synchronize()
+    launches_p = read()
+    n_mt = edge_launches(n_lights, (4, 2, 1))
+    log(f"[edge pallas] launches {launches_p} (expected {n_mt} of each "
+        f"\"mt\"-path kernel)")
+    for k, n in launches_p.items():
+        require(n == (n_mt if k in MT_PATH else 0),
+                f"edge pallas {k}: {n} launches")
+    value_gate(cfg_p, img_p, "edge pallas")
+    gbp = backward(*forward(cfg_p, True))
+    # the kernels against their plain versions on this path's own queries
+    # (side paths at 2^18 lanes over the image, shadow-term probes)
+    t0 = time.perf_counter()
+    with plain_versions():
+        gbp_plain = backward(*forward(cfg_p, True))
+    torch.cuda.synchronize()
+    plain_p_s = time.perf_counter() - t0
+    cos_pp, rel_pp = ec.cos_rel(gbp[:3], gbp_plain[:3])
+    log(f"[edge pallas] boundary vertex gradient against the plain "
+        f"versions ({plain_p_s:.1f} s): cosine {cos_pp:.9f}, relative L2 "
+        f"{rel_pp:.3g} (bound {EDGE_PLAIN_BOUND}); eye {gbp[3].tolist()} "
+        f"vs {gbp_plain[3].tolist()}")
+    require(rel_pp <= EDGE_PLAIN_BOUND[0] and cos_pp >= EDGE_PLAIN_BOUND[1],
+            f"edge pallas vs plain versions: cosine {cos_pp}, rel {rel_pp}")
+    cos_p, rel_p = ec.cos_rel(gbp[:3], gb[:3])
+    log(f"[edge pallas] boundary vertex gradient against bvh: cosine "
+        f"{cos_p:.9f}, relative L2 {rel_p:.3g} (bound {EDGE_PALLAS_BOUND})")
+    require(rel_p <= EDGE_PALLAS_BOUND[0] and cos_p >= EDGE_PALLAS_BOUND[1],
+            f"edge pallas vs bvh: cosine {cos_p}, rel {rel_p}")
+    res["pallas"] = dict(launches=launches_p, cos_vs_plain=cos_pp,
+                         rel_vs_plain=rel_pp, cos_vs_bvh=cos_p,
+                         rel_vs_bvh=rel_p)
+
+    # the FD cases on the card, under "bvh"
+    res["fd"] = {}
+    for name in ec.CARD_CASES:
+        g, fd = ec.fd_check(name, ec.torch_samples(name, 0, dev),
+                            intersector="bvh")
+        case = ec.CASES[name]
+        log(f"[edge fd] {name}: gradient {g:.6g}, FD {fd:.6g}, bound "
+            f"|g - fd| < {case.rel} |fd| + {case.abs_}")
+        require(abs(fd) > case.min_fd and ec.within(name, g, fd),
+                f"edge fd {name}: gradient {g} vs FD {fd}")
+        res["fd"][name] = dict(grad=g, fd=fd)
+    log(f"[edge] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return res
 
 
 def _cos(a, b):
@@ -1461,6 +1704,7 @@ def main() -> int:
     rr_pallas, rr_bvh = phase_rr(scene, cam, cfg, dev, frame["stats"],
                                  frame_bvh["stats"])
     features = phase_features(scene, cam, cfg, dev, img, samples)
+    edge = phase_edge(scene, cam, cfg, dev)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0))
                  for k, v in step_errs.items()}
@@ -1475,7 +1719,8 @@ def main() -> int:
     paths = {"frame_mt": frame, "frame_mt2": frame2, "train_step_mxu": train,
              "frame_textured": textured, "frame_env_nee": env,
              "frame_bvh": frame_bvh, "frame_rr_pallas": rr_pallas,
-             "frame_rr_bvh": rr_bvh}
+             "frame_rr_bvh": rr_bvh, "edge_bvh": edge,
+             "edge_pallas": edge["pallas"]}
     replaces = {
         "block_cull": ("prismarine_core_tpu_torch/csrc/cull.cu",
                        "prismarine_core_tpu/ops/pallas_cull.py:51"),
@@ -1535,6 +1780,7 @@ def main() -> int:
                             if k != "launches"},
         "frame_rr_bvh": {k: v for k, v in rr_bvh.items() if k != "launches"},
         "features": features,
+        "edge": {k: v for k, v in edge.items() if k != "launches"},
         "card": smi}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
         "s")

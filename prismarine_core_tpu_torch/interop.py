@@ -10,7 +10,9 @@ BVH and packet set.  A JAX scene flattened to such a dict (on the JAX
 side) thus crosses over without this package importing jax, and the
 port's query can be held against the JAX query on an identical
 acceleration structure.  ``params_from_numpy`` and ``params_to_numpy``
-carry the train step's parameter dict across the same way.
+carry the train step's parameter dict across the same way,
+``camera_from_numpy`` a camera, and ``samples_from_numpy`` sample arrays
+(a frame's or the boundary term's).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from prismarine_core_tpu_torch.accel.lbvh import BVH
 from prismarine_core_tpu_torch.accel.packet import PacketSet
+from prismarine_core_tpu_torch.models.camera import Camera
 from prismarine_core_tpu_torch.models.geometry import TriangleSoup
 from prismarine_core_tpu_torch.models.lights import SphereLights
 from prismarine_core_tpu_torch.models.materials import MaterialTable
@@ -136,3 +139,27 @@ def params_from_numpy(arrays: dict, device=None) -> dict:
 def params_to_numpy(params: dict) -> dict:
     """The inverse of ``params_from_numpy``."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+#: the camera's fields: eye, target, up f32[3] and fov_y f32[] (radians)
+CAMERA_KEYS = tuple(f.name for f in dataclasses.fields(Camera))
+
+
+def camera_from_numpy(arrays: dict, device=None) -> Camera:
+    """The port's Camera from ``{field: ndarray}`` (keys ``CAMERA_KEYS``,
+    a JAX camera's fields as numpy).  ``device`` None is the CUDA card."""
+    device = resolve_device(device)
+    if set(arrays) != set(CAMERA_KEYS):
+        raise KeyError(f"camera arrays {sorted(arrays)}, expected "
+                       f"{sorted(CAMERA_KEYS)}")
+    return Camera(**{k: torch.tensor(np.asarray(arrays[k], np.float32),
+                                     device=device) for k in CAMERA_KEYS})
+
+
+def samples_from_numpy(*arrays, device=None):
+    """Sample arrays (uniforms made elsewhere, for example by the JAX
+    package's ``make_sample_arrays`` or ``make_edge_sample_arrays``) as
+    float32 tensors on ``device`` (None is the CUDA card), in order."""
+    device = resolve_device(device)
+    return tuple(torch.tensor(np.asarray(a, np.float32), device=device)
+                 for a in arrays)

@@ -107,15 +107,22 @@ def bvh_walk_plain(bvh, o, d, t_cap, any_hit: bool = False):
     return bt, bslot, bu, bv
 
 
+def bvh_walk_plain_hits(bvh, o, d, t_cap, any_hit: bool = False):
+    """``bvh_walk_plain`` with the kernel's return, (t f32[R], slot
+    i32[R]): what CPU tensors run, and what a caller swaps in for the
+    kernel to compare the two."""
+    t, slot, _, _ = bvh_walk_plain(bvh, o, d, t_cap, any_hit)
+    return t, slot.to(torch.int32)
+
+
 def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
     """Closest (or, with ``any_hit``, first accepted) hit per ray: ``o``,
     ``d`` f32[R,3], ``t_cap`` f32[R] (only t strictly below it counts).
     Returns (t f32[R], slot i32[R]); t is t_cap where there is no hit.
     CUDA tensors launch ``csrc/bvh_walk.cu``, CPU tensors run
-    ``bvh_walk_plain``."""
+    ``bvh_walk_plain_hits``."""
     if o.device.type == "cpu":
-        t, slot, _, _ = bvh_walk_plain(bvh, o, d, t_cap, any_hit)
-        return t, slot.to(torch.int32)
+        return bvh_walk_plain_hits(bvh, o, d, t_cap, any_hit)
     dev = o.device
     r, n, s = o.shape[0], bvh.n_nodes, bvh.tv0.shape[0]
     for name, t, dtype, shape in (

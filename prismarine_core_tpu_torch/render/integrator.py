@@ -254,6 +254,14 @@ def _env_nee_contribution(scene, cfg: RenderConfig, p, n, diffuse_beta, u,
     return contrib, need.sum(dtype=torch.int32)
 
 
+def surface_kinds(scene):
+    """The ``kinds`` argument of ``_interpolate_surface`` for ``scene``:
+    None on the texture-less stub stack, else the materials'
+    ``kinds_bound`` (one host sync)."""
+    return (None if getattr(scene.textures, "stub", False)
+            else scene.materials.kinds_bound)
+
+
 def make_bounce_step(scene, cfg: RenderConfig):
     """The per-bounce step: (carry, u f32[R,11]) -> (carry, stats i32[5]).
     The carry is (o, d, beta, radiance, alive, prev_pdf, miss_dir,
@@ -261,8 +269,7 @@ def make_bounce_step(scene, cfg: RenderConfig):
     lane's last continuation, and of its miss) feed env-NEE MIS and stay
     zero without ``cfg.env_nee``; the bounce index (a Python int) turns
     Russian roulette on."""
-    kinds = (None if getattr(scene.textures, "stub", False)
-             else scene.materials.kinds_bound)
+    kinds = surface_kinds(scene)
 
     def step(carry, u):
         (o, d, beta, radiance, alive, prev_pdf, miss_dir, miss_beta,

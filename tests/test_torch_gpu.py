@@ -623,11 +623,79 @@ def test_bvh_cornell_frame_equal_plain(cuda_device, knobs, monkeypatch):
     assert n == 8 * (4 if knobs else 1)
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-2
 
-    def plain(bvh, o, d, t_cap, any_hit=False):
-        t, slot, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
-        return t, slot.to(torch.int32)
-    monkeypatch.setattr(traverse, "bvh_walk", plain)
+    monkeypatch.setattr(traverse, "bvh_walk", bw.bvh_walk_plain_hits)
     img_p, stats_p = render_with_samples(scene, cam, cfg, *samples,
                                          with_stats=True)
     assert bw.bvh_walk.launches - launches == n
     assert torch.equal(img, img_p) and torch.equal(stats, stats_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sweep_v0_x", "sweep_v2_y", "shared_edge",
+                                  "cast_shadow", "fat_light", "two_lights"])
+def test_edge_gradient_fd_on_card(cuda_device, name):
+    """The finite-difference cases of tests/test_edge_gradients.py on the
+    card under "bvh" (the walk kernel), on sample arrays of a CPU
+    generator seeded 0 (tests/torch_edge_cases.py), under the JAX tests'
+    bounds."""
+    # pytest puts this file's directory on sys.path ("tests" may name
+    # another installed package)
+    import torch_edge_cases as ec
+    g, fd = ec.fd_check(name, ec.torch_samples(name, 0, cuda_device),
+                        intersector="bvh")
+    assert abs(fd) > ec.CASES[name].min_fd, fd
+    assert ec.within(name, g, fd), (g, fd)
+
+
+@pytest.mark.gpu
+def test_edge_gradients_equal_plain_walk(cuda_device, monkeypatch):
+    """A 64x48 ``render_with_edge_gradients`` of the small hall (env NEE,
+    every boundary term, 8,192 edge samples, "bvh"): its value equals
+    ``render_with_samples`` exactly, and its vertex gradient on the walk
+    kernel matches the one on the walk's plain version up to the order of
+    the backward's atomic adds (relative L2 <= 1e-5, cosine >= 0.99999)."""
+    import torch_edge_cases as ec
+    from prismarine_core_tpu_torch.accel import traverse
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
+    from prismarine_core_tpu_torch.ops.sampling import make_sample_arrays
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        apply_params, init_params)
+    from prismarine_core_tpu_torch.render.edge_grad import (
+        make_edge_sample_arrays, render_with_edge_gradients)
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    dev = cuda_device
+    scene = _bench_hall(dev, textured=False)
+    cam = Camera.look_at(eye=(-10.0, 2.2, 0.0), target=(6.0, 1.6, 0.0),
+                         fov_y_deg=60.0, device=dev)
+    cfg = RenderConfig(width=64, height=48, max_bounces=4, env_nee=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cam_s, bounce_s = make_sample_arrays(gen, cfg.n_rays, cfg.max_bounces)
+    eu, ebs = make_edge_sample_arrays(gen, 8192, cfg.max_bounces)
+    w = torch.rand((48, 64, 3), generator=gen, device=dev)
+
+    def grads():
+        params = {k: v.detach().clone().requires_grad_(k in ("v0", "v1",
+                                                              "v2"))
+                  for k, v in init_params(scene).items()}
+        img = render_with_edge_gradients(
+            apply_params(scene, params), cam, cfg, cam_s, bounce_s, eu, ebs,
+            shadow_term=True)
+        return img.detach(), torch.autograd.grad(
+            (img * w).sum(), [params[k] for k in ("v0", "v1", "v2")])
+
+    launches = bw.bvh_walk.launches
+    img, g = grads()
+    assert bw.bvh_walk.launches - launches == 44
+    assert torch.equal(img, render_with_samples(scene, cam, cfg, cam_s,
+                                                bounce_s))
+
+    monkeypatch.setattr(traverse, "bvh_walk", bw.bvh_walk_plain_hits)
+    img_p, g_p = grads()
+    assert torch.equal(img, img_p)
+    assert all(bool(torch.isfinite(x).all()) for x in g)
+    assert sum(int((x != 0).sum()) for x in g) > 0
+    cos, rel = ec.cos_rel(g, g_p)
+    assert rel <= 1e-5 and cos >= 0.99999, (cos, rel)

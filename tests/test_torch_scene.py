@@ -6,9 +6,11 @@ arrays, slot order and packet planes bit for bit.  Also: the numpy
 interop round-trips, and importing the port leaves jax unloaded.
 """
 
+import ast
 import dataclasses
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -169,12 +171,17 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys\n"
-            "import prismarine_core_tpu_torch.render.integrator\n"
-            "import prismarine_core_tpu_torch.interop\n"
-            "import prismarine_core_tpu_torch.models.procedural\n"
-            "import prismarine_core_tpu_torch._build\n"
-            "import prismarine_core_tpu_torch.parallel.mesh\n"
+    """Every module of the port (found by ``pkgutil.walk_packages``, so a
+    module added later is covered too) imports without jax, the JAX
+    package or triton."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import prismarine_core_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'prismarine_core_tpu_torch.render.edge_grad' in names\n"
+            "assert len(names) >= 30, names\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('prismarine_core_tpu.')"
             " or m == 'prismarine_core_tpu' or m == 'triton']\n"
@@ -183,3 +190,15 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # chip_smoke.py and the card's shared test cases import lazily: read
+    # their import statements
+    root = Path(__file__).resolve().parents[1]
+    for path in (root / "chip_smoke.py", root / "tests/torch_edge_cases.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else [node.module])
+                for m in mods:
+                    top = (m or "").split(".")[0]
+                    assert top not in ("jax", "prismarine_core_tpu"), (
+                        path.name, m)
