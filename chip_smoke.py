@@ -2,8 +2,11 @@
 """Chip smoke test of the PyTorch port: the bench frame, the
 inverse-rendering train step, the textured hall frame, the env-NEE frame,
 the BVH walk and the "bvh" frame (RenderConfig's default intersector),
-Russian roulette, interlacing, depth of field, the 360 camera and the
-boundary (edge-sampled) gradients on one NVIDIA GPU.
+Russian roulette, interlacing, depth of field, the 360 camera, the
+boundary (edge-sampled) gradients, and the application layer (the
+"rounds" strategy, the progressive renderer, checkpoints, the CLI, OBJ
+ingest, bench.py's teapot and independent-sampling frames) on one NVIDIA
+GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -121,12 +124,35 @@ Phases (any failure exits non-zero):
                 cosine 0.99999 of "bvh"'s); the finite-difference cases of
                 tests/test_edge_gradients.py on the card under "bvh"
                 (tests/torch_edge_cases.py); forward, backward and
-                boundary-only times, peak memory and one profiled rep.
+                boundary-only times, peak memory and one profiled rep;
+ 15. application — (a) "rounds" (phase_rounds) on the bounce-1 step's
+                closest (K 16) and shadow (K 8) queries, stale masks off
+                and on: every round's block_cull, pair_cull and
+                sb_intersect input equal to the plain versions, closest t
+                bit-identical to "two_round" (tie lanes counted),
+                occlusion identical to "single", rounds, pairs per round,
+                host syncs and times against "two_round" / "single";
+                (b) the CLI's default frame (the hall, 1280x720, 4
+                bounces, independent sampling, any-hit "rounds") through
+                the frame's gates with launches <= CLI_LAUNCHES, its
+                plain-version parity, and 8 ProgressiveRenderer frames
+                equal to the sum of render_with_samples frames on a clone
+                of its generator; (c) save_renderer after 4 frames,
+                load_renderer into a fresh renderer, 4 more: bit-identical
+                to 8 straight; (d) ``python -m prismarine_core_tpu_torch.cli``
+                as a subprocess: exit 0, a 1280x720 PNG, the HDR equal to
+                the NPY within RGBE's precision, the NPY against (b)'s
+                snapshot by the image gate; (e) bench.py's teapot-512 and
+                teapot-512-obj-ingested frames (the OBJ written as bench.py
+                writes it, ingested by the native parser, its vertices
+                within the text's rounding); (f) bench.py's
+                hall-720p-hdr-sky(independent) frame.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
 JSON (the five ported kernels and bvh_walk, with their launches on each
-path, and every frame's, the step's and the edge path's results),
+path, and every frame's, the step's, the edge path's and the application
+phase's results),
 nvidia-smi's line, and ``{"ok": true, "device": {...}}``.  The script
 exits 0 only when every phase passes.  Nothing falls back to the CPU.
 """
@@ -140,6 +166,7 @@ import json
 import linecache
 import math
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -194,6 +221,15 @@ EDGE_SAMPLES = 2 ** 18
 EDGE_LEAVES = ("v0", "v1", "v2")
 EDGE_PLAIN_BOUND = (1e-5, 0.99999)
 EDGE_PALLAS_BOUND = (1e-3, 0.99999)
+#: phase 15: the CLI's default frame: per frame each packet kernel runs at
+#: most twice per closest query ("two_round") and once per round of a
+#: shadow query ("rounds", K 8: 32 rounds over the hall's 256
+#: superblocks), over 4 bounces; the frames its renderer accumulates
+CLI_LAUNCHES = 2 * BOUNCES + 32 * BOUNCES
+CLI_FRAMES = 8
+#: bench.py's teapot frame: "single" for both queries (fewer superblocks
+#: than K), one launch of each kernel per query
+TEAPOT_LAUNCHES = 2 * BOUNCES
 #: the profiler's own range around each scheduled step (a span, no op)
 STEP_RANGE = "ProfilerStep"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
@@ -431,15 +467,13 @@ def first_bounce(scene, cam, cfg, dev):
     return o, d, carry[4], carry1, bounce_s
 
 
-def record_step(scene, cfg, carry, samples, queries=STEP_QUERIES):
+@contextlib.contextmanager
+def recorded_calls():
     """The arguments of every block_cull, pair_cull and sb_intersect call
-    of one bounce step at ``carry`` (on the kernels), one per query of
-    ``queries``: the closest query's rounds 1 and 2, the shadow query and,
-    with env NEE, the env shadow query."""
+    the packet query makes in the block (on the kernels), by kernel."""
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
-    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
-    calls = {"block_cull": [], "pair_cull": [], "sb_intersect": []}
+    calls = {k: [] for k in MT_PATH}
     saved = pk.block_cull, pk.pair_cull, pk.sb_intersect
 
     def recorder(k, fn):
@@ -451,9 +485,19 @@ def record_step(scene, cfg, carry, samples, queries=STEP_QUERIES):
     pk.pair_cull = recorder("pair_cull", cull.pair_cull)
     pk.sb_intersect = recorder("sb_intersect", si.sb_intersect)
     try:
-        make_bounce_step(scene, cfg)(carry, samples)
+        yield calls
     finally:
         pk.block_cull, pk.pair_cull, pk.sb_intersect = saved
+
+
+def record_step(scene, cfg, carry, samples, queries=STEP_QUERIES):
+    """The arguments of every block_cull, pair_cull and sb_intersect call
+    of one bounce step at ``carry`` (on the kernels), one per query of
+    ``queries``: the closest query's rounds 1 and 2, the shadow query and,
+    with env NEE, the env shadow query."""
+    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    with recorded_calls() as calls:
+        make_bounce_step(scene, cfg)(carry, samples)
     require(all(len(v) == len(queries) for v in calls.values()),
             f"kernel calls in one bounce step: "
             f"{ {k: len(v) for k, v in calls.items()} }")
@@ -713,6 +757,19 @@ def plain_versions():
         pk.block_cull, pk.pair_cull, pk.sb_intersect = saved
 
 
+def frame_samples(cfg, dev, seed=0):
+    """A frame's sample arrays as bench.py draws them: 64x64-block
+    coherent uniforms under ``coherent_bounce_sampling``, else independent
+    ones (the first frame of a ProgressiveRenderer seeded ``seed``)."""
+    import torch
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays, make_sample_arrays)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.coherent_bounce_sampling:
+        return make_coherent_sample_arrays(gen, cfg, block=(64, 64))
+    return make_sample_arrays(gen, cfg.n_rays, cfg.max_bounces, device=dev)
+
+
 def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
                 max_launches=MAX_LAUNCHES, mean_band=MEAN_BAND, ranges=None,
                 kernels=MT_PATH):
@@ -724,13 +781,10 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
     given)."""
     import torch
     from prismarine_core_tpu_torch.accel import packet as pk
-    from prismarine_core_tpu_torch.ops.sampling import (
-        make_coherent_sample_arrays)
     from prismarine_core_tpu_torch.render.integrator import (
         render_with_samples)
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    cam_s, bounce_s = make_coherent_sample_arrays(gen, cfg, block=(64, 64))
+    cam_s, bounce_s = frame_samples(cfg, dev)
 
     # the main-path run: counters from 0, read right after
     read = zero_launches()
@@ -747,7 +801,7 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
     for k, n in launches.items():
         require(0 < n <= max_launches if k in kernels else n == 0,
                 f"{tag} {k}: {n} launches")
-    require(img.shape == (H, W, 3), f"{tag} image shape "
+    require(img.shape == (cfg.height, cfg.width, 3), f"{tag} image shape "
             f"{tuple(img.shape)}")
     require(bool(torch.isfinite(img).all()), f"{tag}: non-finite image")
     mean = float(img.mean())
@@ -1438,6 +1492,376 @@ def phase_edge(scene, cam, cfg, dev):
     return res
 
 
+def _same_args(a, b) -> bool:
+    """Two recorded kernel calls' arguments are equal (tensors bit for
+    bit)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a, b))
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(map(_same_args, a, b)))
+    return a == b
+
+
+def check_recorded(calls, tag, seen):
+    """Every recorded block_cull, pair_cull and sb_intersect call against
+    its plain version, exactly; an input equal to one already checked
+    (``seen``, per kernel) is not checked twice.  Returns (each kernel's
+    largest |kernel - plain|, inputs checked, the plain versions' ms)."""
+    import functools
+    import torch
+    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
+    pairs = {"block_cull": (cull.block_cull, cull.block_cull_plain),
+             "pair_cull": (cull.pair_cull, cull.pair_cull_plain),
+             "sb_intersect": (si.sb_intersect, functools.partial(
+                 si.sb_intersect_plain, chunk=128))}
+    errs, n_checked, t0 = {}, 0, time.perf_counter()
+    for k, (kernel, plain) in pairs.items():
+        for i, args in enumerate(calls[k]):
+            if any(_same_args(args, old) for old in seen[k]):
+                continue
+            out, ref = kernel(*args), plain(*args)
+            out, ref = ((out,), (ref,)) if k != "sb_intersect" else (out, ref)
+            require(all(map(torch.equal, out, ref)),
+                    f"{tag}: {k} call {i} != plain")
+            errs[k] = max(errs.get(k, 0.0),
+                          float((out[0] - ref[0]).abs().max())
+                          if out[0].numel() else 0.0)
+            seen[k].append(args)
+            n_checked += 1
+    torch.cuda.synchronize()
+    return errs, n_checked, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_rounds(scene, cam, cfg, dev):
+    """The "rounds" strategy on the hall at full width: the bounce-1
+    step's closest query (K = cfg.closest_k) and shadow query (K 8) under
+    "rounds", stale masks off and on; every round's block_cull, pair_cull
+    and sb_intersect inputs against the plain versions exactly; closest t
+    bit-identical to "two_round" (other triangles only on tie lanes,
+    counted), occlusion identical to "single", stale masks changing
+    nothing; rounds, pairs per round and host syncs per query, and CUDA
+    event times against "two_round" / "single" in alternating turns."""
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.render.integrator import (
+        _pallas_kwargs, make_bounce_step)
+    t_phase = time.perf_counter()
+    _, _, _, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
+    # the bounce-1 step's two queries as the integrator makes them
+    made = {}
+    saved = pk.intersect_closest_pallas, pk.occluded_pallas
+
+    def rec(name, fn):
+        def run(*args, **kw):
+            made[name] = (args, kw)
+            return fn(*args, **kw)
+        return run
+    pk.intersect_closest_pallas = rec("closest", saved[0])
+    pk.occluded_pallas = rec("shadow", saved[1])
+    try:
+        make_bounce_step(scene, cfg)(carry1, bounce_s[1])
+    finally:
+        pk.intersect_closest_pallas, pk.occluded_pallas = saved
+    (c_args, c_kw), (s_args, s_kw) = made["closest"], made["shadow"]
+
+    def closest(strategy, stale=False):
+        kw = dict(c_kw, return_order=False, **_pallas_kwargs(cfg.replace(
+            closest_strategy=strategy, stale_round_masks=stale), False))
+        return pk.intersect_closest_pallas(*c_args, **kw)
+
+    def shadow(strategy, stale=False):
+        kw = dict(s_kw, **_pallas_kwargs(cfg.replace(
+            anyhit_strategy=strategy, stale_round_masks=stale), True))
+        return pk.occluded_pallas(*s_args, **kw)
+
+    out = {"rays": int(c_args[3].shape[0]),
+           "superblocks": scene.packets.n_superblocks}
+    seen = {k: [] for k in MT_PATH}
+    errs = {}
+    results = {}
+    for label, fn in (("closest", closest), ("shadow", shadow)):
+        for stale in (False, True):
+            tag = f"{label} rounds{' stale' if stale else ''}"
+            syncs0 = pk.compact_pairs.host_syncs
+            with recorded_calls() as calls:
+                res = fn("rounds", stale)
+            torch.cuda.synchronize()
+            compactions = pk.compact_pairs.host_syncs - syncs0
+            detected = sum((host_syncs(lambda: fn("rounds", stale))
+                            - host_syncs(lambda: None)).values())
+            pairs = [int(a[3]) for a in calls["sb_intersect"]]
+            e, n_checked, plain_ms = check_recorded(calls, tag, seen)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            results[tag] = res
+            out[tag] = dict(rounds=len(pairs), pairs=pairs,
+                            compactions=compactions, host_syncs=detected,
+                            launches={k: len(v) for k, v in calls.items()})
+            log(f"[rounds] {tag}: {len(pairs)} rounds, pairs per round "
+                f"{pairs}; {compactions} pair compactions, {detected} host "
+                f"syncs detected; launches "
+                f"{ {k: len(v) for k, v in calls.items()} }; {n_checked} new "
+                f"inputs == plain exactly (plain versions {plain_ms:.0f} ms)")
+    two = closest("two_round")
+    fresh, stale = results["closest rounds"], results["closest rounds stale"]
+    require(torch.equal(fresh.t, two.t), "rounds closest t != two_round")
+    ties = int((fresh.tri != two.tri).sum())
+    require(all(torch.equal(getattr(fresh, f), getattr(stale, f))
+                for f in ("t", "tri", "u", "v")),
+            "closest rounds: stale masks changed the hits")
+    single = shadow("single")
+    require(torch.equal(results["shadow rounds"], single)
+            and torch.equal(results["shadow rounds stale"], single),
+            "rounds occlusion != single")
+    hits = int((fresh.tri >= 0).sum())
+    log(f"[rounds] closest rounds t == two_round bit for bit on "
+        f"{out['rays']} rays ({hits} hits; {ties} tie lanes on another "
+        f"triangle at equal t); stale == fresh; shadow rounds (fresh, "
+        f"stale) == single on every lane ({int(single.sum())} occluded)")
+    med, runs = alternating_ms({
+        "closest two_round": lambda: closest("two_round"),
+        "closest rounds": lambda: closest("rounds"),
+        "shadow single": lambda: shadow("single"),
+        "shadow rounds": lambda: shadow("rounds"),
+        "shadow rounds stale": lambda: shadow("rounds", True)},
+        turns=5, reps=3)
+    out.update(ties=ties, hits=hits, occluded=int(single.sum()),
+               ms=med, turns_ms=runs, max_abs_err=errs)
+    log(f"[rounds] ms per query (medians of 5 alternating turns of 3, "
+        f"CUDA events, host syncs inside): "
+        f"{ {k: round(v, 4) for k, v in med.items()} }; turns "
+        f"{ {k: [round(x, 4) for x in v] for k, v in runs.items()} }")
+    log(f"[rounds] phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def cli_args(*extra):
+    """The CLI's parsed arguments for the hall at the bench frame's size
+    (its every other flag at its default)."""
+    from prismarine_core_tpu_torch import cli
+    return cli.build_parser().parse_args(
+        ["--scene", "hall", "--res", f"{W}x{H}", "--depth", str(BOUNCES),
+         "--frames", str(CLI_FRAMES), *extra])
+
+
+def png_size(path) -> tuple:
+    """(width, height) from a PNG's signature and IHDR chunk; fails the
+    run on any other file."""
+    data = Path(path).read_bytes()[:24]
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: no PNG signature")
+    n, kind, w, h = struct.unpack(">I4sII", data[8:24])
+    require(kind == b"IHDR" and n == 13, f"{path}: no IHDR chunk first")
+    return w, h
+
+
+def phase_application(scene, cam, cfg, dev):
+    """Phase 15: the application layer on the card.  (a) "rounds"
+    (phase_rounds); (b) the CLI's default frame (cli_args: the hall, 4
+    bounces, independent sampling, "pallas" with any-hit "rounds")
+    through phase_frame's gates and measurements with this path's launch
+    bound, its plain-version parity, and CLI_FRAMES frames of a
+    ProgressiveRenderer equal to the sum of render_with_samples frames
+    drawn from a clone of its generator; (c) a checkpoint after 4 frames,
+    loaded into a fresh renderer and 4 more frames, bit-identical to 8
+    straight; (d) the CLI itself as a subprocess (exit 0, a 1280x720 PNG,
+    the HDR round-tripping the NPY within RGBE's precision, the NPY
+    against (b)'s snapshot); (e) bench.py's teapot-512 and
+    teapot-512-obj-ingested frames (the OBJ written as bench.py writes it,
+    ingested by the native parser); (f) bench.py's
+    hall-720p-hdr-sky(independent) frame."""
+    import numpy as np
+    import tempfile
+    import torch
+    from prismarine_core_tpu_torch import cli, native
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.models.obj_loader import load_obj
+    from prismarine_core_tpu_torch.models.procedural import (
+        make_teapot_scene)
+    from prismarine_core_tpu_torch.models.scene import Scene
+    from prismarine_core_tpu_torch.ops.sampling import make_sample_arrays
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    from prismarine_core_tpu_torch.render.pipeline import (
+        ProgressiveRenderer)
+    from prismarine_core_tpu_torch.utils.checkpoint import (
+        load_renderer, save_renderer)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    from prismarine_core_tpu_torch.utils.image import load_hdr
+    t_phase = time.perf_counter()
+    out = {"rounds": phase_rounds(scene, cam, cfg, dev)}
+
+    # (b) the CLI's default frame
+    args = cli_args()
+    cfg_c = cli.make_config(args)
+    t0 = time.perf_counter()
+    scene_c, cam_c = cli.make_scene_camera(args, dev)
+    torch.cuda.synchronize()
+    log(f"[frame cli] {cfg_c}; hall of {int(scene_c.triangles.num_valid())} "
+        f"tris, {scene_c.packets.n_superblocks} superblocks, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    img, res, samples = phase_frame(scene_c, cam_c, cfg_c, dev,
+                                    tag="frame cli",
+                                    max_launches=CLI_LAUNCHES,
+                                    mean_band=(1e-2, math.inf))
+    res["parity"] = phase_parity(scene_c, cam_c, cfg_c, img, samples,
+                                 tag="parity cli")
+    renderer = ProgressiveRenderer(scene_c, cam_c, cfg_c, seed=args.seed)
+    gen = torch.Generator(device=dev)
+    gen.set_state(renderer._generator.get_state())
+    read = zero_launches()
+    times = []
+    for _ in range(CLI_FRAMES):
+        t0 = time.perf_counter()
+        renderer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read()
+    for k in MT_PATH:
+        require(0 < launches[k] <= CLI_FRAMES * CLI_LAUNCHES,
+                f"pipeline {k}: {launches[k]} launches in {CLI_FRAMES} "
+                "frames")
+    ref = torch.zeros_like(renderer._accum)
+    for i in range(CLI_FRAMES):
+        f = render_with_samples(scene_c, cam_c, cfg_c, *make_sample_arrays(
+            gen, cfg_c.n_rays, cfg_c.max_bounces, device=dev))
+        if i == 0:
+            require(torch.equal(f, img), "the renderer's first frame != "
+                    "the frame cli image (the same seed)")
+        ref = ref + f
+    require(torch.allclose(renderer._accum, ref, rtol=1e-6, atol=0),
+            "pipeline accumulator != the sum of its frames")
+    snap = renderer.snapshot()
+    require(bool(np.isfinite(snap).all()) and snap.mean() > 1e-2,
+            f"pipeline snapshot mean {snap.mean()}")
+    ms = 1e3 * sum(times) / CLI_FRAMES
+    res["pipeline"] = dict(
+        ms_per_frame=ms, frame_ms=[1e3 * t for t in times],
+        launches=launches, mean=float(snap.mean()),
+        accum_bit_identical=bool(torch.equal(renderer._accum, ref)))
+    log(f"[pipeline] {CLI_FRAMES} ProgressiveRenderer frames: {ms:.3f} "
+        f"ms/frame ({', '.join(f'{1e3 * t:.3f}' for t in times)}), "
+        f"launches {launches}; accumulator == the sum of "
+        f"render_with_samples frames on a clone of its generator "
+        f"(bit-identical {res['pipeline']['accum_bit_identical']}); "
+        f"snapshot mean {snap.mean():.6f}")
+    out["frame_cli"] = res
+
+    scratch = REPO / "build" / "chip_smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        # (c) checkpoint: 4 frames, save, load into a fresh renderer, 4
+        half = ProgressiveRenderer(scene_c, cam_c, cfg_c, seed=args.seed)
+        half.render_frames(CLI_FRAMES // 2)
+        save_renderer(str(tmp / "ckpt"), half)
+        resumed = ProgressiveRenderer(scene_c, cam_c, cfg_c,
+                                      seed=args.seed + 1)
+        load_renderer(str(tmp / "ckpt"), resumed)
+        resumed.render_frames(CLI_FRAMES - CLI_FRAMES // 2)
+        require(torch.equal(resumed._accum, renderer._accum)
+                and torch.equal(resumed._weight, renderer._weight),
+                "checkpoint: 4 + 4 frames != 8 straight")
+        log(f"[checkpoint] {CLI_FRAMES // 2} frames, save_renderer "
+            f"({(tmp / 'ckpt.npz').stat().st_size} bytes), load_renderer "
+            f"into a fresh renderer, {CLI_FRAMES - CLI_FRAMES // 2} more: "
+            f"bit-identical to {CLI_FRAMES} straight")
+
+        # (d) the CLI as a subprocess
+        png = tmp / "r.png"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "prismarine_core_tpu_torch.cli",
+             "--scene", "hall", "--res", f"{W}x{H}", "--depth", str(BOUNCES),
+             "--frames", str(CLI_FRAMES), "--out", str(png)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"CLI exit {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        size = png_size(png)
+        require(size == (W, H), f"CLI PNG size {size}")
+        npy = np.load(tmp / "r.npy")
+        hdr = load_hdr(str(tmp / "r.hdr"))
+        rgbe = npy.max(axis=-1, keepdims=True) / 128.0 + 1e-6
+        require(hdr.shape == npy.shape and bool(
+            (np.abs(hdr - npy) <= rgbe).all()), "CLI .hdr != .npy within "
+            "RGBE's precision")
+        gate = image_gate(torch.from_numpy(npy), torch.from_numpy(snap),
+                          "cli", "pipeline's snapshot of the same seed")
+        out["cli"] = dict(wall_s=wall, png_size=size, vs_pipeline=gate,
+                          stderr=proc.stderr.strip().splitlines())
+        log(f"[cli] python -m prismarine_core_tpu_torch.cli --scene hall "
+            f"--res {W}x{H} --depth {BOUNCES} --frames {CLI_FRAMES}: exit 0 "
+            f"in {wall:.1f} s wall (process start, scene, {CLI_FRAMES} "
+            f"frames, writes); PNG {size[0]}x{size[1]}, HDR == NPY within "
+            f"RGBE's precision; its stderr: {out['cli']['stderr']}")
+
+        # (e) bench.py's teapot-512 and teapot-512-obj-ingested
+        tcfg = RenderConfig(width=512, height=512, spp=1,
+                            max_bounces=BOUNCES, intersector="pallas",
+                            pairs_per_step=8, stale_round_masks=True,
+                            anyhit_strategy="single", cull_impl="pallas2",
+                            closest_k=16, cull_window=8192, cull_pps=16)
+        tscene = make_teapot_scene(device=dev)
+        require(tscene.packets.n_superblocks <= tcfg.closest_k,
+                "the teapot has more superblocks than K")
+        tcam = Camera.look_at(eye=(5.0, 3.2, 6.0), target=(0.0, 1.0, 0.0),
+                              fov_y_deg=45.0, device=dev)
+        _, out["frame_teapot"], _ = phase_frame(
+            tscene, tcam, tcfg, dev, tag="frame teapot",
+            max_launches=TEAPOT_LAUNCHES, mean_band=(1e-2, math.inf))
+        soup = tscene.triangles
+        nv = int(soup.num_valid())
+        v = np.concatenate([x[:nv].cpu().numpy()
+                            for x in (soup.v0, soup.v1, soup.v2)])
+        obj = tmp / "teapot.obj"
+        with open(obj, "w") as f:
+            f.write("".join(f"v {x:.6f} {y:.6f} {z:.6f}\n"
+                            for x, y, z in v))
+            f.write("".join(f"f {i+1} {i+1+nv} {i+1+2*nv}\n"
+                            for i in range(nv)))
+        t0 = time.perf_counter()
+        lib_path = native.build()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        osoup, omats, otex = load_obj(str(obj), use_native=True, device=dev)
+        oscene = Scene.assemble(osoup, omats, tscene.lights,
+                                tscene.environment, textures=otex)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        require(int(osoup.num_valid()) == nv, "ingested triangle count")
+        # the text rounds to 6 decimals (5e-7 at |v| <= 1), and parsing
+        # it rounds to float32 once more (half an ulp: |v| * 2^-24)
+        worst = 0.0
+        for k in ("v0", "v1", "v2"):
+            a = getattr(osoup, k)[:nv]
+            b = getattr(soup, k)[:nv]
+            excess = ((a - b).abs() - 5e-7 * torch.clamp(b.abs(), min=1.0)
+                      - b.abs() * 2.0 ** -24)
+            worst = max(worst, float(excess.max()))
+        require(worst <= 0.0, f"ingested vertices off the %.6f rounding "
+                f"by {worst}")
+        log(f"[teapot obj] {nv} tris through {lib_path.name} (g++ "
+            f"{build_s:.1f} s): ingest {ingest_s:.3f} s (native parse + "
+            "soup + BVH); vertices within the %.6f text's rounding and "
+            "float32's")
+        _, res_o, _ = phase_frame(oscene, tcam, tcfg, dev,
+                                  tag="frame teapot obj",
+                                  max_launches=TEAPOT_LAUNCHES,
+                                  mean_band=(1e-2, math.inf))
+        res_o.update(ingest_s=ingest_s, native_build_s=build_s)
+        out["frame_teapot_obj"] = res_o
+
+    # (f) bench.py's hall-720p-hdr-sky(independent)
+    _, out["frame_independent"], _ = phase_frame(
+        scene, cam, cfg.replace(coherent_bounce_sampling=False), dev,
+        tag="frame independent", mean_band=(1e-2, math.inf))
+    log(f"[application] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _cos(a, b):
     import torch
     a, b = a.double().reshape(-1), b.double().reshape(-1)
@@ -1705,8 +2129,10 @@ def main() -> int:
                                  frame_bvh["stats"])
     features = phase_features(scene, cam, cfg, dev, img, samples)
     edge = phase_edge(scene, cam, cfg, dev)
+    app = phase_application(scene, cam, cfg, dev)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
-                        env["step_errs"].get(k, 0.0))
+                        env["step_errs"].get(k, 0.0),
+                        app["rounds"]["max_abs_err"].get(k, 0.0))
                  for k, v in step_errs.items()}
 
     # each kernel's launches on its path: the frame's for the "mt" path
@@ -1720,7 +2146,11 @@ def main() -> int:
              "frame_textured": textured, "frame_env_nee": env,
              "frame_bvh": frame_bvh, "frame_rr_pallas": rr_pallas,
              "frame_rr_bvh": rr_bvh, "edge_bvh": edge,
-             "edge_pallas": edge["pallas"]}
+             "edge_pallas": edge["pallas"], "frame_cli": app["frame_cli"],
+             "pipeline_8_frames": app["frame_cli"]["pipeline"],
+             "frame_teapot": app["frame_teapot"],
+             "frame_teapot_obj": app["frame_teapot_obj"],
+             "frame_independent": app["frame_independent"]}
     replaces = {
         "block_cull": ("prismarine_core_tpu_torch/csrc/cull.cu",
                        "prismarine_core_tpu/ops/pallas_cull.py:51"),
@@ -1781,6 +2211,13 @@ def main() -> int:
         "frame_rr_bvh": {k: v for k, v in rr_bvh.items() if k != "launches"},
         "features": features,
         "edge": {k: v for k, v in edge.items() if k != "launches"},
+        "application": {
+            "rounds": {k: v for k, v in app["rounds"].items()
+                       if k != "turns_ms"},
+            "cli": {k: v for k, v in app["cli"].items() if k != "stderr"},
+            **{k: {f: x for f, x in app[k].items() if f != "launches"}
+               for k in ("frame_cli", "frame_teapot", "frame_teapot_obj",
+                         "frame_independent")}},
         "card": smi}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
         "s")

@@ -13,13 +13,20 @@ shared library.
 
 Layout::
 
-    utils/    config (RenderConfig), vector math
+    utils/    config (RenderConfig), device, vector math, image writers
+              (PNG/HDR/NPY), checkpoints (.npz), profiling
     ops/      morton codes, sampling, brute intersectors,
-              cull.py + sb_intersect.py (kernel wrappers + plain versions)
+              cull.py + sb_intersect.py + bvh_walk.py (kernel wrappers +
+              plain versions)
     models/   triangle soup, materials, lights, env map, camera, scene,
-              procedural scenes
-    accel/    LBVH build, packet set + packet query
-    render/   the bounce integrator
+              procedural scenes, OBJ and glTF loaders
+    accel/    LBVH build, BVH walk, packet set + packet query
+    render/   the bounce integrator, boundary gradients (edge_grad),
+              the progressive renderer (pipeline)
+    parallel/ the inverse-rendering train step
+    cli       ``python -m prismarine_core_tpu_torch.cli`` (headless render)
+    native    g++ build + ctypes binding of the OBJ parser
+              (native/src/objparse.cc)
     interop   scene <-> dict of numpy arrays
     _build    nvcc build + ctypes binding of csrc/*.cu
 """

@@ -17,8 +17,11 @@ The counterpart of the ``cull_impl="pallas2"`` path of
    two sub-blocks of a tile a stage, the same result bit for bit) or
    "mxu" (``sb_intersect_mxu`` on coefficient planes built per query by
    ``mxu_planes_from_planes``);
-5. "two_round" (closest-hit): each tile's K nearest superblocks first,
-   then one re-cull of the rest under the tightened per-ray caps;
+5. "two_round" (the closest-hit default): each tile's K nearest
+   superblocks first, then one re-cull of the rest under the tightened
+   per-ray caps; "rounds" (the any-hit default): every tile's candidates
+   front to back, K a round, each round's block masks refreshed under
+   the caps so far, until no tile's next candidate can beat its cap;
    "single": every candidate pair at once.
 
 The JAX path pads pair lists to static lengths, aligns them to the TPU
@@ -50,8 +53,8 @@ from prismarine_core_tpu_torch.ops.sb_intersect import (
 from prismarine_core_tpu_torch.utils.config import INF_DIST, check_query_knobs
 from prismarine_core_tpu_torch.utils.math import cross, safe_rcp, take_rows
 
-#: default round-1 budget of "two_round": each tile's K nearest
-#: superblocks
+#: default per-round budget of "two_round" and "rounds": each tile's K
+#: nearest (remaining) superblocks a round
 K_FIRST = 8
 
 
@@ -218,14 +221,18 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
                        k_round: int | None = None,
                        strategy: str | None = None,
                        cull_impl: str = "pallas2", sort_mode: str = "full",
-                       kernel_form: str = "mt", near_frac: float = 0.0):
+                       kernel_form: str = "mt", near_frac: float = 0.0,
+                       stale_round_masks: bool = False):
     """Sort + tile rays, cull, run the pairs, unsort.  Returns
     (slot, order): per-ray closest-hit slot (-1 = none) in the caller's
     ray order, and the coherence sort.
 
-    ``strategy``: "two_round" (default for closest-hit) or "single"; the
-    JAX default for any-hit, "rounds", is not ported.  ``order`` reuses a
-    closest query's (perm, inv_perm) for its shadow query."""
+    ``strategy``: "two_round" (default for closest-hit), "rounds"
+    (default for any-hit) or "single"; scenes of at most ``k_round``
+    superblocks run "single".  ``stale_round_masks``: "rounds" refines
+    every round's block masks on the round-0 rays instead of on rays with
+    the caps so far (the same hits; more blocks tested).  ``order``
+    reuses a closest query's (perm, inv_perm) for its shadow query."""
     if strategy is None:
         strategy = "rounds" if any_hit else "two_round"
     check_query_knobs(cull_impl=cull_impl, sort_mode=sort_mode,
@@ -262,8 +269,45 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
         pm = pair_cull(pt, psb, n_real, cull_rays, sbbox)
         return intersect(pt, psb, pm, n_real, rays, planes, prior)
 
+    def caps_from(out):
+        """Per-ray caps after ``out`` (any-hit: 0 once a lane has a hit;
+        closest: its best t so far) and their per-tile maximum."""
+        if any_hit:
+            slot = out[1][:nt * TILE].reshape(nt, TILE)
+            tct_eff = torch.where(slot >= 0, 0.0, tct)
+        else:
+            tct_eff = torch.minimum(tct, out[0][:nt * TILE].reshape(nt, TILE))
+        return tct_eff, tct_eff.amax(dim=1)
+
+    def rays_with_caps(tct_eff):
+        out = rays.clone()
+        out[:nt * TILE, RC_TCAP] = tct_eff.reshape(-1)
+        return out
+
     if strategy == "single":
         out = run(sb_mask, rays)
+    elif strategy == "rounds":
+        # every tile's candidates front to back (stable: equal distances
+        # keep superblock order), K a round; round 0 on the query's rays
+        tn_sorted, sb_sorted = torch.sort(
+            torch.where(sb_mask, tn_sb, INF_DIST), dim=1, stable=True)
+        out = run(tn_sorted[:, :k_first] < INF_DIST, rays,
+                  cols=sb_sorted[:, :k_first])
+        for rr in range(1, -(-nsb // k_first)):
+            tct_eff, tile_cap = caps_from(out)
+            cols = slice(rr * k_first, (rr + 1) * k_first)
+            ctn = tn_sorted[:, cols]
+            ok = (ctn <= tile_cap[:, None]) & (ctn < INF_DIST)
+            pt, psb, n_real = compact_pairs(ok, sb_sorted[:, cols])
+            # candidates are distance-ascending per tile, so an empty
+            # round leaves every later one empty too: the JAX loop's
+            # exit test (no tile's next candidate within its cap), read
+            # from the list length the compaction's host sync gives
+            if pt.shape[0] == 0:
+                break
+            pm = pair_cull(pt, psb, n_real, rays if stale_round_masks
+                           else rays_with_caps(tct_eff), sbbox)
+            out = intersect(pt, psb, pm, n_real, rays, planes, out)
     else:
         # round 1: the K nearest candidate superblocks of every tile
         # (stable sort: equal distances keep superblock order)
@@ -277,14 +321,8 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
         executed = executed[:, :nsb]
 
         # round 2: re-cull the rest under the tightened per-ray caps
-        best1 = out[0][:nt * TILE].reshape(nt, TILE)
-        if any_hit:
-            slot1 = out[1][:nt * TILE].reshape(nt, TILE)
-            tct2 = torch.where(slot1 >= 0, 0.0, tct)
-        else:
-            tct2 = torch.minimum(tct, best1)
-        rays2 = rays.clone()
-        rays2[:nt * TILE, RC_TCAP] = tct2.reshape(-1)
+        tct2, _ = caps_from(out)
+        rays2 = rays_with_caps(tct2)
         tn2 = block_cull(rays2, sb_rows, _live_tile_bound(tct2))[:, :nsb]
         sb_mask2 = (tn2 < INF_DIST) & sb_mask & ~executed
         out = run(sb_mask2, rays2, prior=out)

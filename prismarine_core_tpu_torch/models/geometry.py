@@ -83,6 +83,59 @@ class TriangleSoup:
             valid=torch.as_tensor(valid, device=device),
         )
 
+    @staticmethod
+    def from_corners(v0, v1, v2, n0, n1, n2, t0, t1, t2, mat_ids,
+                     capacity: int | None = None,
+                     device=None) -> "TriangleSoup":
+        """Build directly from per-corner numpy arrays (the native OBJ
+        parser's output); ``device`` None is the CUDA card."""
+        device = resolve_device(device)
+        nf = len(v0)
+        cap = capacity or nf
+        if cap < nf:
+            raise ValueError(f"capacity {cap} < {nf} triangles")
+
+        def pad(x, w):
+            out = np.zeros((cap, w), np.float32)
+            out[:nf] = x
+            return torch.as_tensor(out, device=device)
+
+        valid = np.zeros((cap,), bool)
+        valid[:nf] = True
+        mid = np.zeros((cap,), np.int32)
+        mid[:nf] = mat_ids
+        return TriangleSoup(
+            v0=pad(v0, 3), v1=pad(v1, 3), v2=pad(v2, 3),
+            n0=pad(n0, 3), n1=pad(n1, 3), n2=pad(n2, 3),
+            t0=pad(t0, 2), t1=pad(t1, 2), t2=pad(t2, 2),
+            mat_id=torch.as_tensor(mid, device=device),
+            valid=torch.as_tensor(valid, device=device))
+
+    @staticmethod
+    def concatenate(soups: list["TriangleSoup"]) -> "TriangleSoup":
+        """The soups' lanes one after another (all on one device)."""
+        return TriangleSoup(**{
+            f.name: torch.cat([getattr(s, f.name) for s in soups])
+            for f in dataclasses.fields(TriangleSoup)})
+
+    def transformed(self, matrix) -> "TriangleSoup":
+        """Apply a 4x4 transform to the positions and its inverse
+        transpose to the normals (renormalised), on the soup's device."""
+        m = torch.as_tensor(matrix, dtype=torch.float32, device=self.device)
+        nrm_m = torch.linalg.inv(m[:3, :3]).T
+
+        def xp(p):
+            return p @ m[:3, :3].T + m[:3, 3]
+
+        def xn(n):
+            out = n @ nrm_m.T
+            return out / torch.clamp(
+                torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-12)
+
+        return dataclasses.replace(
+            self, v0=xp(self.v0), v1=xp(self.v1), v2=xp(self.v2),
+            n0=xn(self.n0), n1=xn(self.n1), n2=xn(self.n2))
+
 
 def _smooth_vertex_normals(vertices: np.ndarray,
                            faces: np.ndarray) -> np.ndarray:

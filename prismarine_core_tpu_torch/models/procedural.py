@@ -1,4 +1,5 @@
-"""Procedural benchmark scenes: the colonnaded hall and the HDR sky.
+"""Procedural benchmark scenes: the colonnaded hall, the teapot and the
+HDR sky.
 
 The counterpart of ``prismarine_core_tpu.models.procedural``.  Geometry,
 textures and sky are built in numpy from the same seeds, formulas and
@@ -196,6 +197,59 @@ def make_hall_scene(target_tris: int = 100_000, seed: int = 0,
         soup, mats, SphereLights.suns(device=device),
         Environment.constant((0.35, 0.45, 0.65), device=device),
         textures=textures, build_bvh=build_bvh)
+
+
+def make_teapot_scene(capacity: int | None = None, build_bvh: bool = True,
+                      device=None) -> Scene:
+    """Teapot-class single object on a ground plane: a surface of
+    revolution body, lid knob, spout and handle (3,516 triangles) under
+    the procedural sky.  ``device`` None is the CUDA card."""
+    device = resolve_device(device)
+    parts = []
+    prof_t = np.linspace(0.0, 1.0, 24)
+    radius = (0.45 + 1.45 * np.sin(np.pi * prof_t ** 0.8)
+              * (1.0 - 0.35 * prof_t))
+    height = 2.2 * prof_t
+    segs = 64
+    ang = np.linspace(0, 2 * np.pi, segs, endpoint=False)
+    rings = [np.stack([r * np.cos(ang), np.full(segs, h),
+                       r * np.sin(ang)], axis=1)
+             for r, h in zip(radius, height)]
+    verts = np.concatenate(rings).astype(np.float32)
+    faces = []
+    for i in range(len(rings) - 1):
+        for c in range(segs):
+            c2 = (c + 1) % segs
+            a, b = i * segs + c, i * segs + c2
+            d, e = (i + 1) * segs + c, (i + 1) * segs + c2
+            faces.append([a, d, e])
+            faces.append([a, e, b])
+    parts.append((verts, np.asarray(faces, np.int64),
+                  np.full(len(faces), 0, np.int32)))
+    parts.append(_sphere_mesh((0.0, 2.35, 0.0), 0.22, 8, 16, 0))  # lid knob
+    for k in range(6):                                             # spout
+        t = k / 6.0
+        parts.append(_cylinder((1.5 + 0.9 * t, 0.7 + 1.0 * t, 0.0),
+                               0.16 - 0.08 * t, 0.25, 12, 0))
+    for k in range(8):                                             # handle
+        a = np.pi * (0.25 + 0.5 * k / 8.0)
+        parts.append(_cylinder((-1.35 - 0.55 * np.sin(a),
+                                1.15 + 0.75 * np.cos(a), 0.0),
+                               0.1, 0.22, 10, 0))
+    parts.append(make_box((-8, -0.2, -8), (8, 0.0, 8), mat_id=1))  # ground
+
+    verts, faces, mids = merge_meshes(parts)
+    soup = TriangleSoup.from_arrays(verts, faces, mat_ids=mids,
+                                    capacity=capacity, device=device)
+    mats = MaterialTable.build([
+        {"diffuse": (0.75, 0.71, 0.68), "roughness": 0.15,
+         "metallic": 0.7},
+        {"diffuse": (0.5, 0.5, 0.52), "roughness": 0.7},
+    ], device=device)
+    return Scene.assemble(
+        soup, mats, SphereLights.suns(device=device),
+        make_sky_environment(resolution=128, device=device),
+        build_bvh=build_bvh)
 
 
 def make_sky_environment(resolution: int = 256, sun_dir=(0.5, 0.6, 0.3),

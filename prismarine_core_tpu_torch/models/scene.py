@@ -1,4 +1,4 @@
-"""Scene container + the Cornell test scene.
+"""Scene container + the Cornell and sun-plane test scenes.
 
 The counterpart of ``prismarine_core_tpu.models.scene``: geometry,
 materials, lights, environment and textures, plus the acceleration
@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 
 from prismarine_core_tpu_torch.models.geometry import (
-    TriangleSoup, make_box, merge_meshes)
+    TriangleSoup, make_box, make_quad, merge_meshes)
 from prismarine_core_tpu_torch.models.lights import SphereLights
 from prismarine_core_tpu_torch.models.materials import MaterialTable
 from prismarine_core_tpu_torch.models.textures import (
@@ -105,3 +105,22 @@ def make_cornell_scene(capacity: int | None = None, device=None) -> Scene:
                                  color=(40.0, 40.0, 38.0), device=device)
     env = Environment.constant((0.0, 0.0, 0.0), device=device)
     return Scene.assemble(tris, mats, lights, env)
+
+
+def make_sun_plane_scene(capacity: int | None = None, device=None) -> Scene:
+    """Open plane + cube under the default far sun (env-map misses and
+    long shadow rays).  ``device`` None is the CUDA card."""
+    device = resolve_device(device)
+    plane = make_quad((-10, 0, -10), (-10, 0, 10), (10, 0, 10),
+                      (10, 0, -10), mat_id=0)
+    cube = make_box((-0.5, 0.0, -0.5), (0.5, 1.0, 0.5), mat_id=1)
+    verts, faces, mids = merge_meshes([plane, cube])
+    tris = TriangleSoup.from_arrays(verts, faces, mat_ids=mids,
+                                    capacity=capacity, device=device)
+    mats = MaterialTable.build([
+        {"diffuse": (0.6, 0.6, 0.6)},
+        {"diffuse": (0.8, 0.5, 0.3), "roughness": 0.3, "metallic": 0.2},
+    ], device=device)
+    return Scene.assemble(
+        tris, mats, SphereLights.suns(device=device),
+        Environment.constant((0.4, 0.55, 0.75), device=device))

@@ -21,6 +21,9 @@ SAMPLES_PER_BOUNCE = 11
 SAMPLES_PER_CAMERA_RAY = 4
 #: the pair intersector's forms (ops/sb_intersect.py)
 KERNEL_FORMS = ("mt", "mt2", "mxu")
+#: the packet query's execution strategies ("" = the query type's
+#: default: "two_round" for closest hits, "rounds" for any-hit)
+STRATEGIES = ("", "single", "two_round", "rounds")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,5 +155,5 @@ def check_query_knobs(cull_impl="pallas2", sort_mode="full",
     if near_frac != 0.0:
         _unsupported("near_frac", _KNOBS)
     for s in strategies:
-        if s not in ("", "single", "two_round"):
-            _unsupported(f"strategy={s!r}", _KNOBS)
+        if s not in STRATEGIES:
+            raise ValueError(f"strategy={s!r} is none of {STRATEGIES}")

@@ -384,13 +384,16 @@ def test_cull_kernels_equal_plain_on_round_two(cuda_device, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("strategy", ["two_round", "single"])
+@pytest.mark.parametrize("strategy", ["two_round", "single", "rounds",
+                                      "rounds-stale"])
 @pytest.mark.parametrize("name", ["camera", "bounce", "shadow"])
 def test_hall_query_equal_plain(cuda_device, name, strategy, request):
     """The packet query on the small hall's camera, bounce and shadow rays
-    ("two_round" with K = 2, so that the prior-seeded round 2 runs, and
-    "single"; closest and any-hit): the same hits on the kernels as on the
-    plain versions."""
+    ("two_round" with K = 2, so that the prior-seeded round 2 runs,
+    "rounds" with K = 2, so that many prior-seeded rounds run on
+    cap-tightened (or, stale, round-0) pair culls, and "single"; closest
+    and any-hit): the same hits on the kernels as on the plain
+    versions."""
     from test_torch_cull_reject import _hall
     dev = cuda_device
     scene, o, d, hit = _hall(dev)
@@ -406,7 +409,8 @@ def test_hall_query_equal_plain(cuda_device, name, strategy, request):
         o = p
     t_cap = torch.where(hit.tri >= 0, INF_DIST, 0.0)
     bvh, ps, soup = scene.bvh, scene.packets, scene.triangles
-    kw = dict(strategy=strategy, k_round=2)
+    kw = dict(strategy=strategy.split("-")[0], k_round=2,
+              stale_round_masks=strategy.endswith("-stale"))
 
     def run():
         h = pk.intersect_closest_pallas(bvh, ps, soup, o, d, t_cap=t_cap,
@@ -699,3 +703,20 @@ def test_edge_gradients_equal_plain_walk(cuda_device, monkeypatch):
     assert sum(int((x != 0).sum()) for x in g) > 0
     cos, rel = ec.cos_rel(g, g_p)
     assert rel <= 1e-5 and cos >= 0.99999, (cos, rel)
+
+
+@pytest.mark.gpu
+def test_image_writers_take_card_tensors(cuda_device, tmp_path):
+    """PNG, HDR and NPY written from a tensor on the card hold what the
+    same image writes from the host."""
+    from prismarine_core_tpu_torch.utils import image
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    img = 3.0 * torch.rand((24, 40, 3), generator=g, device=cuda_device)
+    host = img.cpu().numpy()
+    for name, write in (("png", image.save_png), ("hdr", image.save_hdr),
+                        ("npy", image.save_npy)):
+        write(str(tmp_path / f"card.{name}"), img)
+        write(str(tmp_path / f"host.{name}"), host)
+        assert ((tmp_path / f"card.{name}").read_bytes()
+                == (tmp_path / f"host.{name}").read_bytes()), name
+    np.testing.assert_array_equal(np.load(tmp_path / "card.npy"), host)

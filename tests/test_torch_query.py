@@ -127,7 +127,7 @@ def test_order_reuse_and_unported_knobs(scenes):
     b = tpk.occluded_pallas(ts.bvh, ts.packets, ts.triangles, o, d, t_max,
                             strategy="single")
     assert torch.equal(a, b)
-    for bad in (dict(strategy="rounds"), dict(cull_impl="pallas"),
+    for bad in (dict(near_frac=0.5), dict(cull_impl="pallas"),
                 dict(sort_mode="packed")):
         with pytest.raises(NotImplementedError):
             tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles,
@@ -135,8 +135,10 @@ def test_order_reuse_and_unported_knobs(scenes):
     with pytest.raises(ValueError):            # no such kernel form
         tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles, o, d,
                                      kernel_form="mt3")
-    with pytest.raises(NotImplementedError):   # any-hit default: "rounds"
-        tpk.occluded_pallas(ts.bvh, ts.packets, ts.triangles, o, d, t_max)
+    # the any-hit default, "rounds" (tests/test_torch_rounds.py), gives
+    # the "single" occlusion
+    assert torch.equal(tpk.occluded_pallas(ts.bvh, ts.packets,
+                                           ts.triangles, o, d, t_max), b)
 
 
 def test_sorted_ray_matrix_matches_jax():

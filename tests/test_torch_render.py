@@ -148,7 +148,7 @@ def test_render_entry_point_and_unported_knobs():
     for bad in (dict(reuse_bounce_order=True), dict(primary_identity=True),
                 dict(primary_tile_order=True), dict(sort_mode="group"),
                 dict(cull_impl="xla"),
-                dict(closest_strategy="rounds"), dict(intersector="packet"),
+                dict(near_frac=0.5), dict(intersector="packet"),
                 dict(intersector="pallas_sharded")):
         with pytest.raises(NotImplementedError):
             tint.render(scene, cam, cfg.replace(**bad),
