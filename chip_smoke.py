@@ -3,10 +3,11 @@
 inverse-rendering train step, the textured hall frame, the env-NEE frame,
 the BVH walk and the "bvh" frame (RenderConfig's default intersector),
 Russian roulette, interlacing, depth of field, the 360 camera, the
-boundary (edge-sampled) gradients, and the application layer (the
+boundary (edge-sampled) gradients, the application layer (the
 "rounds" strategy, the progressive renderer, checkpoints, the CLI, OBJ
-ingest, bench.py's teapot and independent-sampling frames) on one NVIDIA
-GPU.
+ingest, bench.py's teapot and independent-sampling frames) and the
+device mesh ("pallas_sharded", sharded textures, the sharded train step,
+on meshes that repeat the card) on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -146,13 +147,36 @@ Phases (any failure exits non-zero):
                 teapot-512-obj-ingested frames (the OBJ written as bench.py
                 writes it, ingested by the native parser, its vertices
                 within the text's rounding); (f) bench.py's
-                hall-720p-hdr-sky(independent) frame.
+                hall-720p-hdr-sky(independent) frame;
+ 16. mesh     — every mesh position the card, so the shards run one after
+                another (phase_mesh): (a) the bounce-1 step's closest
+                ("mt" and "mxu") and shadow queries through the sharded
+                query at meshes 1x2, 1x3 (256 superblocks padded to 258)
+                and 1x4: every shard's block_cull, pair_cull, sb_intersect
+                and sb_intersect_mxu input equal to the plain versions,
+                the "mt" hits equal to the single card's but on counted
+                tie lanes (t bit for bit elsewhere), "mxu"'s other
+                triangles counted (<= 1e-4 of the hits), occlusion
+                identical, CUDA-event times of both; (b) the bench frame
+                under "pallas_sharded" at mesh 2x2 through the frame's
+                gates and measurements (launches up to 4 x 12) and the
+                image gate against phase 4's frame, make_sharded_renderer
+                equal to render_with_samples; (c) the textured hall (100k
+                target, 256^2 textures) at 1024x1024 and 8 bounces through
+                make_sharded_renderer at mesh 2x4, soup a husk and textures
+                split: finite, non-degenerate, the image gate against the
+                single-card "pallas" frame, per-shard planes and texture
+                bytes at most 1/mp of the whole + 1 KiB; (d) one
+                "pallas_sharded" train step under "mxu" at mesh 1x2 (the
+                BVH rebuilt inside the loss) against one single-card step:
+                the loss within 5e-3 relative, each update's cosine, v0-v2
+                moved and finite, sb_intersect_mxu launched.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
 JSON (the five ported kernels and bvh_walk, with their launches on each
-path, and every frame's, the step's, the edge path's and the application
-phase's results),
+path, the sharded ones included, and every frame's, the step's, the edge
+path's, the application phase's and the mesh phase's results),
 nvidia-smi's line, and ``{"ok": true, "device": {...}}``.  The script
 exits 0 only when every phase passes.  Nothing falls back to the CPU.
 """
@@ -230,6 +254,15 @@ CLI_FRAMES = 8
 #: bench.py's teapot frame: "single" for both queries (fewer superblocks
 #: than K), one launch of each kernel per query
 TEAPOT_LAUNCHES = 2 * BOUNCES
+#: phase 16: the model-parallel degrees of the query's 1 x mp meshes, and
+#: the (data, model) meshes of the bench frame, the textured frame and the
+#: train step; every position of each is the one card
+QUERY_MESHES = (2, 3, 4)
+MESH_FRAME, MESH_TEXTURED, MESH_TRAIN = (2, 2), (2, 4), (1, 2)
+#: the textured frame the JAX package could only compile
+#: (__graft_entry__.py:76-123): 1024x1024, 8 bounces
+BIG_W = BIG_H = 1024
+BIG_BOUNCES = 8
 #: the profiler's own range around each scheduled step (a span, no op)
 STEP_RANGE = "ProfilerStep"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
@@ -468,26 +501,30 @@ def first_bounce(scene, cam, cfg, dev):
 
 
 @contextlib.contextmanager
-def recorded_calls():
-    """The arguments of every block_cull, pair_cull and sb_intersect call
-    the packet query makes in the block (on the kernels), by kernel."""
+def recorded_calls(kernels=MT_PATH):
+    """The arguments of every call of ``kernels`` (block_cull, pair_cull,
+    sb_intersect, sb_intersect_mxu) the packet query makes in the block
+    (on the kernels), by kernel."""
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
-    calls = {k: [] for k in MT_PATH}
-    saved = pk.block_cull, pk.pair_cull, pk.sb_intersect
+    wrappers = {"block_cull": cull.block_cull, "pair_cull": cull.pair_cull,
+                "sb_intersect": si.sb_intersect,
+                "sb_intersect_mxu": si.sb_intersect_mxu}
+    calls = {k: [] for k in kernels}
+    saved = {k: getattr(pk, k) for k in kernels}
 
     def recorder(k, fn):
         def run(*args):
             calls[k].append(args)
             return fn(*args)
         return run
-    pk.block_cull = recorder("block_cull", cull.block_cull)
-    pk.pair_cull = recorder("pair_cull", cull.pair_cull)
-    pk.sb_intersect = recorder("sb_intersect", si.sb_intersect)
+    for k in kernels:
+        setattr(pk, k, recorder(k, wrappers[k]))
     try:
         yield calls
     finally:
-        pk.block_cull, pk.pair_cull, pk.sb_intersect = saved
+        for k, fn in saved.items():
+            setattr(pk, k, fn)
 
 
 def record_step(scene, cfg, carry, samples, queries=STEP_QUERIES):
@@ -1506,7 +1543,8 @@ def _same_args(a, b) -> bool:
 
 
 def check_recorded(calls, tag, seen):
-    """Every recorded block_cull, pair_cull and sb_intersect call against
+    """Every recorded block_cull, pair_cull, sb_intersect and
+    sb_intersect_mxu call against
     its plain version, exactly; an input equal to one already checked
     (``seen``, per kernel) is not checked twice.  Returns (each kernel's
     largest |kernel - plain|, inputs checked, the plain versions' ms)."""
@@ -1516,14 +1554,17 @@ def check_recorded(calls, tag, seen):
     pairs = {"block_cull": (cull.block_cull, cull.block_cull_plain),
              "pair_cull": (cull.pair_cull, cull.pair_cull_plain),
              "sb_intersect": (si.sb_intersect, functools.partial(
-                 si.sb_intersect_plain, chunk=128))}
+                 si.sb_intersect_plain, chunk=128)),
+             "sb_intersect_mxu": (si.sb_intersect_mxu, functools.partial(
+                 si.sb_intersect_mxu_plain, chunk=64))}
     errs, n_checked, t0 = {}, 0, time.perf_counter()
     for k, (kernel, plain) in pairs.items():
-        for i, args in enumerate(calls[k]):
+        for i, args in enumerate(calls.get(k, ())):
             if any(_same_args(args, old) for old in seen[k]):
                 continue
             out, ref = kernel(*args), plain(*args)
-            out, ref = ((out,), (ref,)) if k != "sb_intersect" else (out, ref)
+            out, ref = (((out,), (ref,)) if k in ("block_cull", "pair_cull")
+                        else (out, ref))
             require(all(map(torch.equal, out, ref)),
                     f"{tag}: {k} call {i} != plain")
             errs[k] = max(errs.get(k, 0.0),
@@ -2084,6 +2125,305 @@ def phase_train(scene, cam, cfg, dev, target, samples):
                 profile=prof, cornell_rate_losses=ref_losses)
 
 
+def card_mesh(dev, rows, mp):
+    """A rows x mp ("data", "model") mesh whose every position is ``dev``."""
+    from prismarine_core_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(rows * mp, model_parallel=mp, devices=[dev] * (rows * mp))
+
+
+def step_queries(scene, cfg, carry, samples):
+    """The closest and shadow queries of one bounce step at ``carry`` as
+    the integrator makes them on one card: {"closest": (args, kw),
+    "shadow": (args, kw)} of ``intersect_closest_pallas`` and
+    ``occluded_pallas``."""
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    made = {}
+    saved = pk.intersect_closest_pallas, pk.occluded_pallas
+
+    def rec(name, fn):
+        def run(*args, **kw):
+            made[name] = (args, kw)
+            return fn(*args, **kw)
+        return run
+    pk.intersect_closest_pallas = rec("closest", saved[0])
+    pk.occluded_pallas = rec("shadow", saved[1])
+    try:
+        make_bounce_step(scene, cfg)(carry, samples)
+    finally:
+        pk.intersect_closest_pallas, pk.occluded_pallas = saved
+    return made
+
+
+def mesh_query(scene, cfg, dev, queries, mp, seen):
+    """Phase 16a at one 1 x mp mesh of the card: the bounce-1 step's
+    closest query ("mt" and "mxu") and shadow query through the sharded
+    query, launches counted around them; every shard's kernel inputs
+    against the plain versions exactly; the hits against the single-card
+    query (the triangle on all but tie lanes, counted, each within rel
+    1e-5 in t; t bit for bit where the triangle is the same), occlusion
+    identical; CUDA-event times of both."""
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.parallel.shard_intersect import (
+        build_sharded_packets, shard_packets, sharded_intersect_closest,
+        sharded_occluded)
+    from prismarine_core_tpu_torch.render.integrator import _pallas_kwargs
+    tag = f"mesh query 1x{mp}"
+    mesh = card_mesh(dev, 1, mp)
+    t0 = time.perf_counter()
+    sp = shard_packets(build_sharded_packets(scene.bvh, mp,
+                                             soup=scene.triangles), mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    (c_args, c_kw), (s_args, s_kw) = queries["closest"], queries["shadow"]
+    o, d, t_cap = c_args[3], c_args[4], c_kw["t_cap"]
+    so, sd, st = s_args[3:6]
+    cfg_x = cfg.replace(kernel_form="mxu")
+
+    def closest(c=cfg):
+        return sharded_intersect_closest(
+            mesh, sp, o, d, t_cap=t_cap, return_order=True,
+            query_kw=_pallas_kwargs(c, any_hit=False))
+
+    def shadow(order):
+        return sharded_occluded(mesh, sp, so, sd, st, order=order,
+                                query_kw=_pallas_kwargs(cfg, any_hit=True))
+
+    def single(c=cfg):
+        kw = dict(c_kw, return_order=False, **_pallas_kwargs(c, False))
+        return pk.intersect_closest_pallas(*c_args, **kw)
+
+    read = zero_launches()
+    with recorded_calls() as calls:
+        hit, order = closest()
+        occ = shadow(order)
+    with recorded_calls(("block_cull", "pair_cull",
+                         "sb_intersect_mxu")) as calls_x:
+        hit_x, _ = closest(cfg_x)
+    torch.cuda.synchronize()
+    launches = read()
+    # per shard at most: two closest rounds of each form, one shadow query
+    for k, most in (("block_cull", 5), ("pair_cull", 5), ("sb_intersect", 3),
+                    ("sb_intersect_mxu", 2)):
+        require(mp <= launches[k] <= most * mp,
+                f"{tag} {k}: {launches[k]} launches")
+    errs, n_checked, plain_ms = check_recorded(calls, tag, seen)
+    e_x, n_x, plain_x = check_recorded(calls_x, f"{tag} mxu", seen)
+    for k, v in e_x.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+
+    res = dict(build_s=build_s, launches=launches, max_abs_err=errs,
+               inputs_checked=n_checked + n_x, plain_ms=plain_ms + plain_x,
+               superblocks_per_shard=sp.n_superblocks // mp)
+    # "mt": other triangles only at equal t (ties); "mxu": its t carries
+    # the determinant form's rounding, so a cull at the cap can keep or
+    # drop an edge candidate differently per shard: counted, not tied
+    for form, got, ref in (("mt", hit, single()),
+                           ("mxu", hit_x, single(cfg_x))):
+        same = got.tri == ref.tri
+        hits = int((ref.tri >= 0).sum())
+        other = int((~same).sum())
+        require(torch.equal(got.t[same], ref.t[same]),
+                f"{tag} {form}: t differs where the triangle is the same")
+        gap = (got.t[~same] - ref.t[~same]).abs() / ref.t[~same].abs()
+        tied = int((gap <= 1e-5).sum())
+        require(other <= 1e-4 * hits and (form == "mxu" or tied == other),
+                f"{tag} {form}: {other} lanes on another triangle, "
+                f"{other - tied} of them not at equal t")
+        res[f"other_{form}"], res[f"tied_{form}"] = other, tied
+        res[f"hits_{form}"] = hits
+        res[f"max_rel_t_gap_{form}"] = float(gap.max()) if other else 0.0
+    occ_ref = pk.occluded_pallas(*s_args, **s_kw)
+    require(torch.equal(occ, occ_ref), f"{tag}: occlusion differs")
+    res["ms"] = dict(closest=cuda_ms(lambda: closest(), 3),
+                     closest_single=cuda_ms(single, 3),
+                     shadow=cuda_ms(lambda: shadow(order), 3),
+                     shadow_single=cuda_ms(lambda: pk.occluded_pallas(
+                         *s_args, **s_kw), 3))
+    log(f"[{tag}] {res['superblocks_per_shard']} superblocks a shard "
+        f"({sp.n_superblocks} with padding), sharded in {build_s:.2f} s; "
+        f"launches {launches}; {n_checked + n_x} kernel inputs of the "
+        f"shards == plain exactly (plain versions "
+        f"{plain_ms + plain_x:.0f} ms); closest vs single card: mt "
+        f"{res['other_mt']} tie lanes of {res['hits_mt']} hits; mxu "
+        f"{res['other_mxu']} lanes of {res['hits_mxu']} on another "
+        f"triangle ({res['tied_mxu']} at equal t, largest relative t gap "
+        f"{res['max_rel_t_gap_mxu']:.3g}); t bit for bit elsewhere; occlusion "
+        f"identical ({int(occ.sum())} occluded); ms "
+        f"{ {k: round(v, 4) for k, v in res['ms'].items()} }")
+    return res
+
+
+def phase_mesh(scene, cam, cfg, dev, img, samples):
+    """Phase 16: the device mesh, on meshes whose every position is the
+    card (the shards run one after another).  (a) the bounce-1 step's
+    queries at meshes 1x2, 1x3 and 1x4 (mesh_query); (b) the bench frame
+    under "pallas_sharded" at mesh 2x2 through phase_frame's gates and
+    measurements (launches up to 4 x 12 a kernel), the image gate against
+    the phase 4 frame, make_sharded_renderer's image equal to it; (c) the
+    textured hall (100k target tris, 256^2 textures) at 1024x1024 and 8
+    bounces through make_sharded_renderer at mesh 2x4 with the soup a
+    husk and the textures split: finite, non-degenerate, the image gate
+    against the same frame on the single-card "pallas" path, per-shard
+    bytes of the planes and of the texture stack at most 1/mp of the
+    whole + 1 KiB; (d) one train step under "pallas_sharded" at mesh 1x2
+    and kernel_form "mxu" from phase_train's start against one
+    single-card step: the loss within 5e-3 relative, the cosine of every
+    parameter's update, v0, v1 and v2 moved and finite, sb_intersect_mxu
+    launched."""
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.models.procedural import (
+        make_hall_scene)
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        init_params, make_sharded_renderer, make_train_step)
+    from prismarine_core_tpu_torch.parallel.shard_intersect import (
+        distribute_scene)
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the query at 1 x mp
+    _, _, _, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
+    queries = step_queries(scene, cfg, carry1, bounce_s[1])
+    seen = {k: [] for k in MT_PATH + ("sb_intersect_mxu",)}
+    for mp in QUERY_MESHES:
+        out[f"query_1x{mp}"] = mesh_query(scene, cfg, dev, queries, mp, seen)
+    # the recorded inputs hold ~60 MB ray matrices: free them before the
+    # peak-memory readings below
+    del seen, queries, carry1, bounce_s
+
+    # (b) the bench frame at 2 x 2
+    rows, mp = MESH_FRAME
+    mesh = card_mesh(dev, rows, mp)
+    dscene = distribute_scene(scene, mesh)
+    cfg_sh = cfg.replace(intersector="pallas_sharded", mesh=mesh)
+    tag = f"frame sharded {rows}x{mp}"
+    img_sh, res, samples_sh = phase_frame(
+        dscene, cam, cfg_sh, dev, tag=tag,
+        max_launches=rows * mp * MAX_LAUNCHES)
+    res["gate"] = image_gate(img_sh, img, tag, "single-card pallas frame")
+    via = make_sharded_renderer(mesh, cfg_sh)(dscene, cam, *samples_sh)
+    require(torch.equal(via, img_sh), f"{tag}: make_sharded_renderer's "
+            "image differs from render_with_samples'")
+    out["frame_2x2"] = res
+    del dscene
+
+    # (c) the textured frame the JAX package could only compile
+    t0 = time.perf_counter()
+    hall = make_hall_scene(target_tris=100_000, textured=True,
+                           texture_resolution=256, device=dev)
+    cfg_c = RenderConfig(width=BIG_W, height=BIG_H, spp=1,
+                         max_bounces=BIG_BOUNCES, intersector="pallas",
+                         cull_impl="pallas2", coherent_bounce_sampling=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    big_s = make_coherent_sample_arrays(gen, cfg_c, block=(64, 64))
+    torch.cuda.synchronize()
+    log(f"[mesh textured] {int(hall.triangles.num_valid())} tris, textures "
+        f"{tuple(hall.textures.data.shape)}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tag = f"frame textured sharded {MESH_TEXTURED[0]}x{MESH_TEXTURED[1]}"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref = render_with_samples(hall, cam, cfg_c, *big_s)
+    torch.cuda.synchronize()
+    single_s, single_peak = (time.perf_counter() - t0,
+                             torch.cuda.max_memory_allocated(dev))
+    rows, mp = MESH_TEXTURED
+    mesh = card_mesh(dev, rows, mp)
+    dhall = distribute_scene(hall, mesh, shard_soup=True,
+                             shard_textures=True)
+    cfg_cs = cfg_c.replace(intersector="pallas_sharded", mesh=mesh)
+    shard_bytes = {}
+    for name, arr in (("planes", dhall.packets.planes),
+                      ("texture data", dhall.textures.data),
+                      ("texture quads", dhall.textures.quad)):
+        b = arr.shard(0).nbytes
+        require(b <= arr.nbytes / mp + 1024, f"{tag}: {name} per shard {b} "
+                f"of {arr.nbytes}")
+        shard_bytes[name] = (b, arr.nbytes)
+    renderer = make_sharded_renderer(mesh, cfg_cs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = zero_launches()
+    syncs0 = pk.compact_pairs.host_syncs
+    t0 = time.perf_counter()
+    big = renderer(dhall, cam, *big_s)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    compactions = pk.compact_pairs.host_syncs - syncs0
+    require(big.shape == (BIG_H, BIG_W, 3), f"{tag}: shape {big.shape}")
+    require(bool(torch.isfinite(big).all()), f"{tag}: non-finite image")
+    require(float(big.std()) > 0.0 and float(big.mean()) > 1e-2,
+            f"{tag}: degenerate image")
+    for k in MT_PATH:
+        require(launches[k] > 0, f"{tag}: no {k} launch")
+    gate = image_gate(big, ref, tag, "single-card pallas frame")
+    out["frame_textured_2x4"] = dict(
+        launches=launches, compactions=compactions, sharded_s=sharded_s,
+        single_s=single_s, peak_mem_bytes=peak,
+        single_peak_mem_bytes=single_peak, mean=float(big.mean()),
+        std=float(big.std()), gate=gate,
+        shard_bytes={k: list(v) for k, v in shard_bytes.items()})
+    log(f"[{tag}] {BIG_W}x{BIG_H}, {BIG_BOUNCES} bounces: sharded frame "
+        f"{sharded_s:.3f} s (one card: {single_s:.3f} s); launches "
+        f"{launches}; {compactions} pair compactions; peak memory "
+        f"{peak / 2**20:.1f} MiB (one card {single_peak / 2**20:.1f}); "
+        f"per-shard bytes of the whole: "
+        f"{ {k: f'{b} of {t}' for k, (b, t) in shard_bytes.items()} }")
+    del hall, dhall, ref, big
+
+    # (d) the sharded train step at 1 x 2 under "mxu"
+    rows, mp = MESH_TRAIN
+    mesh = card_mesh(dev, rows, mp)
+    cfg_x = cfg.replace(kernel_form="mxu")
+    cfg_xs = cfg_x.replace(intersector="pallas_sharded", mesh=mesh)
+    start = {k: v.clone() for k, v in init_params(scene).items()}
+    start["mat_diffuse"][:, :3] *= 0.5
+    dscene = distribute_scene(scene, mesh, shard_soup=False)
+    p1, loss1 = make_train_step(None, cfg_x, **TRAIN_KW)(
+        start, scene, cam, *samples, img)
+    step = make_train_step(mesh, cfg_xs, **TRAIN_KW)
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = zero_launches()
+    t0 = time.perf_counter()
+    p_s, loss_s = step(start, dscene, cam, *samples, img)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    loss1, loss_s = float(loss1), float(loss_s)
+    rel = abs(loss_s - loss1) / loss1
+    cosines = {k: _cos(p_s[k] - start[k], p1[k] - start[k]) for k in start}
+    tag = f"train sharded {rows}x{mp}"
+    require(rel <= 5e-3, f"{tag}: loss {loss_s} vs one card {loss1}")
+    _finite_nonzero({k: p_s[k] - start[k] for k in ("v0", "v1", "v2")},
+                    f"{tag} update")
+    require(launches["sb_intersect_mxu"] > 0, f"{tag}: no sb_intersect_mxu")
+    t0 = time.perf_counter()
+    step(p_s, dscene, cam, *samples, img)
+    torch.cuda.synchronize()
+    step2_s = time.perf_counter() - t0
+    out["train_1x2"] = dict(loss=loss_s, loss_single=loss1, rel=rel,
+                            update_cosine=cosines, launches=launches,
+                            step_ms=[1e3 * step_s, 1e3 * step2_s],
+                            peak_mem_bytes=peak)
+    log(f"[{tag}] loss {loss_s:.9g} vs one card {loss1:.9g} (rel "
+        f"{rel:.3g}); cosine of each update against one card's "
+        f"{ {k: round(c, 6) for k, c in cosines.items()} }; launches "
+        f"{launches}; steps {1e3 * step_s:.1f} / {1e3 * step2_s:.1f} ms "
+        f"(the BVH and the sharded packets rebuilt inside the loss); peak "
+        f"memory {peak / 2**20:.1f} MiB")
+    log(f"[mesh] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2130,10 +2470,16 @@ def main() -> int:
     features = phase_features(scene, cam, cfg, dev, img, samples)
     edge = phase_edge(scene, cam, cfg, dev)
     app = phase_application(scene, cam, cfg, dev)
+    mesh = phase_mesh(scene, cam, cfg, dev, img, samples)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0),
-                        app["rounds"]["max_abs_err"].get(k, 0.0))
+                        app["rounds"]["max_abs_err"].get(k, 0.0),
+                        *(mesh[f"query_1x{mp}"]["max_abs_err"].get(k, 0.0)
+                          for mp in QUERY_MESHES))
                  for k, v in step_errs.items()}
+    for mp in QUERY_MESHES:
+        for k, v in mesh[f"query_1x{mp}"]["max_abs_err"].items():
+            step_errs[k] = max(step_errs.get(k, 0.0), v)
 
     # each kernel's launches on its path: the frame's for the "mt" path
     # kernels, the "mt2" frame's and one train step's for the other forms,
@@ -2150,7 +2496,12 @@ def main() -> int:
              "pipeline_8_frames": app["frame_cli"]["pipeline"],
              "frame_teapot": app["frame_teapot"],
              "frame_teapot_obj": app["frame_teapot_obj"],
-             "frame_independent": app["frame_independent"]}
+             "frame_independent": app["frame_independent"],
+             **{f"query_sharded_1x{mp}": mesh[f"query_1x{mp}"]
+                for mp in QUERY_MESHES},
+             "frame_sharded_2x2": mesh["frame_2x2"],
+             "frame_textured_sharded_2x4": mesh["frame_textured_2x4"],
+             "train_step_sharded_1x2": mesh["train_1x2"]}
     replaces = {
         "block_cull": ("prismarine_core_tpu_torch/csrc/cull.cu",
                        "prismarine_core_tpu/ops/pallas_cull.py:51"),
@@ -2218,6 +2569,11 @@ def main() -> int:
             **{k: {f: x for f, x in app[k].items() if f != "launches"}
                for k in ("frame_cli", "frame_teapot", "frame_teapot_obj",
                          "frame_independent")}},
+        "mesh": {
+            **{k: {f: x for f, x in v.items() if f != "launches"}
+               for k, v in mesh.items() if k != "frame_2x2"},
+            "frame_2x2": {k: v for k, v in mesh["frame_2x2"].items()
+                          if k != "launches"}},
         "card": smi}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
         "s")

@@ -23,7 +23,9 @@ Layout::
     accel/    LBVH build, BVH walk, packet set + packet query
     render/   the bounce integrator, boundary gradients (edge_grad),
               the progressive renderer (pipeline)
-    parallel/ the inverse-rendering train step
+    parallel/ the device mesh (one process over torch devices), the
+              sharded renderer and "pallas_sharded" query, the
+              inverse-rendering train step
     cli       ``python -m prismarine_core_tpu_torch.cli`` (headless render)
     native    g++ build + ctypes binding of the OBJ parser
               (native/src/objparse.cc)

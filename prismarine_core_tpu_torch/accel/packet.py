@@ -224,8 +224,9 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
                        kernel_form: str = "mt", near_frac: float = 0.0,
                        stale_round_masks: bool = False):
     """Sort + tile rays, cull, run the pairs, unsort.  Returns
-    (slot, order): per-ray closest-hit slot (-1 = none) in the caller's
-    ray order, and the coherence sort.
+    (t, slot, order): per ray in the caller's order the kernel's closest
+    distance (t_cap on a miss) and slot (-1 = none), and the coherence
+    sort.
 
     ``strategy``: "two_round" (default for closest-hit), "rounds"
     (default for any-hit) or "single"; scenes of at most ``k_round``
@@ -327,7 +328,7 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
         sb_mask2 = (tn2 < INF_DIST) & sb_mask & ~executed
         out = run(sb_mask2, rays2, prior=out)
 
-    return out[1][:r][order[1]], order
+    return out[0][:r][order[1]], out[1][:r][order[1]], order
 
 
 def _reeval_hit(bvh, soup, o, d, slot) -> Hit:
@@ -364,8 +365,8 @@ def intersect_closest_pallas(bvh, ps: PacketSet, soup, o, d, t_cap=None,
     reach ``o``, ``d`` and the soup through ``_reeval_hit``."""
     if t_cap is None:
         t_cap = torch.full((o.shape[0],), INF_DIST, device=o.device)
-    slot, order = _run_packet_pallas(*_detached(bvh, ps, o, d, t_cap),
-                                     order=order, **kw)
+    _, slot, order = _run_packet_pallas(*_detached(bvh, ps, o, d, t_cap),
+                                        order=order, **kw)
     hit = _reeval_hit(bvh, soup, o, d, slot)
     return (hit, order) if return_order else hit
 
@@ -374,6 +375,6 @@ def occluded_pallas(bvh, ps: PacketSet, soup, o, d, t_max, order=None,
                     **kw):
     """Any-hit query: True where some triangle lies in (PZERO, t_max)
     (no gradient)."""
-    slot, _ = _run_packet_pallas(*_detached(bvh, ps, o, d, t_max),
-                                 any_hit=True, order=order, **kw)
+    _, slot, _ = _run_packet_pallas(*_detached(bvh, ps, o, d, t_max),
+                                    any_hit=True, order=order, **kw)
     return slot >= 0

@@ -29,12 +29,22 @@ class Scene:
     textures: TextureStack
     #: acceleration structure; None until built (see ``with_bvh``)
     bvh: object = None
-    #: packet-query view of the BVH (built with it)
+    #: packet-query view of the BVH (built with it), or the sharded
+    #: packets of ``parallel/shard_intersect.py:distribute_scene``
     packets: object = None
+    #: the device mesh the scene is laid out on (``parallel/mesh.py:
+    #: shard_scene``, ``distribute_scene``); None on one device
+    mesh: object = None
+    #: brute's triangle ranges split over the mesh's "model" axis
+    shard_triangles: bool = False
 
     @property
     def device(self):
-        return self.triangles.device
+        """Where the scene's replicated tensors live: the mesh's first
+        device on a mesh (a distributed scene's soup may be a husk),
+        else the soup's."""
+        return self.mesh.first if self.mesh is not None \
+            else self.triangles.device
 
     @staticmethod
     def assemble(triangles, materials, lights=None, environment=None,

@@ -40,6 +40,12 @@ class TextureStack:
     #: the all-white placeholder stack: the integrator skips every
     #: texture fetch (results are identical, every id is -1)
     stub: bool = False
+    #: the device mesh of a stack split over its "model" axis
+    #: (``parallel/shard_intersect.py:distribute_scene``): ``data`` and
+    #: ``quad`` are then ``MeshArray``s split on the texture axis, and a
+    #: fetch is a shard-local gather plus one sum over the shards
+    #: (``_sharded_texel_rows``); ``sizes`` stays whole
+    mesh: object = None
 
     @property
     def count(self) -> int:
@@ -131,6 +137,33 @@ def _texel_rows(arr, tid, y, x):
     return take_rows(arr.reshape(-1, c), flat)
 
 
+def _sharded_texel_rows(mesh, arr, tid, y, x):
+    """``_texel_rows`` from a texture array split over the "model" axis of
+    ``mesh`` (a ``MeshArray``): per data row, each shard gathers the rows
+    whose texture id it owns and gives zeros elsewhere, and one sum of the
+    shards' results (moved to the row's device) assembles the rows; one
+    shard owns each id, so the sum is the fetch."""
+    from prismarine_core_tpu_torch.parallel.mesh import row_slices
+    mp = mesh.shape["model"]
+    nl = arr.shape[0] // mp
+    out = []
+    for i, sl in enumerate(row_slices(mesh, tid.shape[0])):
+        if sl.start == sl.stop:
+            continue
+        acc = None
+        for j in range(mp):
+            dev = mesh.devices[i][j]
+            lid = tid[sl].to(dev) - j * nl
+            own = (lid >= 0) & (lid < nl)
+            rows = _texel_rows(arr.local(j, dev), torch.where(own, lid, 0),
+                               y[sl].to(dev), x[sl].to(dev))
+            part = torch.where(own[:, None], rows, 0.0).to(
+                mesh.devices[i][0])
+            acc = part if acc is None else acc + part
+        out.append(acc.to(tid.device))
+    return torch.cat(out)
+
+
 def sample_bilinear(stack: TextureStack, tex_id: torch.Tensor,
                     uv: torch.Tensor) -> torch.Tensor:
     """Bilinear texture fetch: tex_id i32[R], uv f32[R,2] -> f32[R,4].
@@ -152,18 +185,24 @@ def sample_bilinear(stack: TextureStack, tex_id: torch.Tensor,
     fy = (y - y0)[:, None]
     x0i = torch.remainder(x0.to(torch.int32), wi)
     y0i = torch.remainder(y0.to(torch.int32), hi)
+    if stack.mesh is not None:
+        def fetch(arr, y, x):
+            return _sharded_texel_rows(stack.mesh, arr, tid, y, x)
+    else:
+        def fetch(arr, y, x):
+            return _texel_rows(arr, tid, y, x)
     if stack.quad is not None:
         # corner-packed: one row gather yields all four texels
-        q = _texel_rows(stack.quad, tid, y0i, x0i)          # [R, 16]
+        q = fetch(stack.quad, y0i, x0i)                     # [R, 16]
         c00, c10, c01, c11 = (q[:, 0:4], q[:, 4:8], q[:, 8:12],
                               q[:, 12:16])
     else:
         x1i = torch.remainder(x0i + 1, wi)
         y1i = torch.remainder(y0i + 1, hi)
-        c00 = _texel_rows(stack.data, tid, y0i, x0i)
-        c10 = _texel_rows(stack.data, tid, y0i, x1i)
-        c01 = _texel_rows(stack.data, tid, y1i, x0i)
-        c11 = _texel_rows(stack.data, tid, y1i, x1i)
+        c00 = fetch(stack.data, y0i, x0i)
+        c10 = fetch(stack.data, y0i, x1i)
+        c01 = fetch(stack.data, y1i, x0i)
+        c11 = fetch(stack.data, y1i, x1i)
     col = ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
            + (c01 * (1 - fx) + c11 * fx) * fy)
     return torch.where(tex_id[:, None] < 0, torch.ones_like(col), col)

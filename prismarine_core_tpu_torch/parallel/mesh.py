@@ -1,23 +1,35 @@
-"""The inverse-rendering training step, on one card.
+"""The device mesh: rays over "data", triangle ranges over "model".
 
-The counterpart of ``prismarine_core_tpu.parallel.mesh``'s training half
-(``make_train_step``, ``init_params``, ``shared_vertices``,
-``init_shared_params``): parameters are the material diffuse table, the
-light colours and the vertex positions (per corner, or one shared vertex
-buffer); the loss is the MSE of the rendered image against a target; the
-step is plain SGD (no optimizer state).  Gradients come from
-``torch.autograd`` through the integrator, with every discrete decision
-detached as in the JAX package: the packet query runs on detached inputs
-and ``_reeval_hit`` re-evaluates each hit from the current geometry.
+The counterpart of ``prismarine_core_tpu.parallel.mesh``.  The JAX package
+drives its ("data", "model") mesh from one process through ``shard_map``;
+here the mesh is likewise one process over a 2-D grid of
+``torch.device``s, and a device may appear more than once
+(``make_mesh(4, model_parallel=2, devices=["cuda:0"] * 4)`` runs the
+whole layout on one card; ``["cpu"] * 8`` is the tests' mesh).  The
+collectives are explicit tensor operations: a gather over "model" is a
+stack of the shards' results moved to the ray shard's device, a sum over
+"model" is a sum, and gradients cross devices through autograd (``.to``
+is differentiable) where the JAX package relies on GSPMD's all-reduce.
 
-As in the JAX package, ``intersector="pallas"`` does not rebuild the BVH
-or packet set inside the loss: after a vertex step the kernels intersect
-the geometry the packet set was built from, and the re-evaluation uses
-the new vertices.  Rebuild the scene (``Scene.with_bvh``) between steps
-to follow the geometry.
-
-``mesh`` is one device or None.  Sharding over several cards is ROADMAP
-queue 1 item 14.
+* ``make_sharded_renderer``: rays and sample arrays split over "data" into
+  contiguous chunks (as ``P("data")`` splits them); each data row traces
+  its chunk on its row's device, and the image comes back on the mesh's
+  first device.
+* ``shard_scene(shard_triangles=True)``: the brute intersector splits the
+  triangle ranges over "model" and takes the closest hit over the ranges
+  (the lowest range on ties, which is brute's own rule).
+* ``parallel/shard_intersect.py``: the "pallas_sharded" intersector
+  (superblock ranges over "model").
+* ``make_train_step``: the inverse-rendering step, on one device or on a
+  mesh.  Parameters are the material diffuse table, the light colours
+  and the vertex positions (per corner, or one shared vertex buffer);
+  the loss is the MSE of the rendered image against a target; the step is
+  plain SGD.  Every discrete decision is detached as in the JAX package:
+  the packet query runs on detached inputs and each hit is re-evaluated
+  from the current geometry.  Under "pallas" the loss does not rebuild
+  the BVH (rebuild the scene with ``Scene.with_bvh`` between steps to
+  follow the geometry); under "pallas_sharded" it rebuilds the BVH and
+  the sharded packets from the parameters, as the JAX step does.
 """
 
 from __future__ import annotations
@@ -27,23 +39,277 @@ import dataclasses
 import numpy as np
 import torch
 
-from prismarine_core_tpu_torch.render.integrator import render_with_samples
-from prismarine_core_tpu_torch.utils.config import RenderConfig
+from prismarine_core_tpu_torch.models.camera import generate_rays
+from prismarine_core_tpu_torch.render.integrator import (
+    interlace_mask, render_with_samples, trace)
+from prismarine_core_tpu_torch.utils.config import (
+    RenderConfig, check_supported)
 from prismarine_core_tpu_torch.utils.math import take_rows
 
-_MULTI = "ROADMAP queue 1 item 14, 'Multi-GPU'"
+
+def _device(d) -> torch.device:
+    """``d`` as a ``torch.device``, a bare "cuda" as the current card."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
-def _check_mesh(mesh) -> None:
-    """``mesh``: None, a device (or its name), or a sequence of exactly
-    one device; more devices raise."""
-    if mesh is None or isinstance(mesh, (str, torch.device)):
-        return
-    n = len(mesh) if hasattr(mesh, "__len__") else None
-    if n != 1:
-        raise NotImplementedError(
-            f"a mesh of {n} devices: the port's train step runs on one "
-            f"card ({_MULTI})")
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A 2-D grid of devices with axes ("data", "model"), driven by one
+    process; ``devices[i][j]`` is data row i, model shard j."""
+
+    devices: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices), "model": len(self.devices[0])}
+
+    @property
+    def first(self) -> torch.device:
+        """The device of data row 0, model shard 0: where results land."""
+        return self.devices[0][0]
+
+    def row(self, i: int) -> "Mesh":
+        """Data row ``i`` as a mesh of one row."""
+        return Mesh((self.devices[i],))
+
+    def column(self, j: int) -> list:
+        """The distinct devices of model shard ``j``'s column, in row
+        order (where the shard's arrays are resident)."""
+        out = []
+        for row in self.devices:
+            if row[j] not in out:
+                out.append(row[j])
+        return out
+
+
+class MeshArray:
+    """A tensor laid out on a Mesh: the counterpart of a ``jax.Array`` under
+    a ``NamedSharding`` of the ("data", "model") axes.  ``spec="model"``
+    (``P("model")``) splits it on its leading axis into one contiguous
+    piece per model shard; ``spec=None`` (``P()``) keeps it whole.  Each
+    piece is resident once on every distinct device of the mesh positions
+    that hold it (a mesh that repeats a device holds it there once), as a
+    copy of its own, not a view of the whole.  Placing is differentiable:
+    gradients reach the tensor placed."""
+
+    def __init__(self, x: torch.Tensor, mesh: Mesh, spec: str | None):
+        mp = mesh.shape["model"]
+        if spec not in ("model", None):
+            raise ValueError(f"spec {spec!r} is neither 'model' nor None")
+        if spec == "model" and x.shape[0] % mp:
+            raise ValueError(f"leading axis {x.shape[0]} does not split "
+                             f"{mp} ways")
+        self.mesh, self.spec = mesh, spec
+        self.shape, self.dtype = tuple(x.shape), x.dtype
+        if spec == "model":
+            n = x.shape[0] // mp
+            self.pieces = {(j, dev): x[j * n:(j + 1) * n].to(dev, copy=True)
+                           for j in range(mp) for dev in mesh.column(j)}
+        else:
+            devs = {dev for row in mesh.devices for dev in row}
+            self.pieces = {(0, dev): x.to(dev, copy=True) for dev in devs}
+
+    def local(self, j: int, device) -> torch.Tensor:
+        """Model shard ``j``'s piece (the whole tensor when replicated) on
+        ``device``, one of the devices of that shard's column."""
+        return self.pieces[(j if self.spec == "model" else 0, device)]
+
+    def shard(self, j: int = 0) -> torch.Tensor:
+        """Model shard ``j``'s piece on the first device of its column (the
+        counterpart of ``addressable_shards[j].data``)."""
+        return self.local(j, self.mesh.column(j)[0])
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the whole tensor (not of one piece)."""
+        return int(np.prod(self.shape)) * self.dtype.itemsize
+
+
+def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
+              devices=None) -> Mesh:
+    """A ("data", "model") mesh of ``n_devices`` devices, ``model_parallel``
+    of them to a row.  ``devices`` defaults to every CUDA card and raises
+    without one; it may repeat a device (``["cuda:0"] * 4``)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: make_mesh() takes every CUDA card; pass "
+                "devices=[...] (for example [\"cpu\"] * 8) to build a mesh "
+                "elsewhere")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [_device(d) for d in devices]
+    n = n_devices or len(devices)
+    if n > len(devices) or n % model_parallel:
+        raise ValueError(f"{n} devices of {len(devices)} in rows of "
+                         f"{model_parallel}")
+    mp = model_parallel
+    return Mesh(tuple(tuple(devices[i * mp:(i + 1) * mp])
+                      for i in range(n // mp)))
+
+
+def row_slices(mesh: Mesh, n: int) -> list:
+    """The contiguous chunk of ``n`` rays each data row takes (the last may
+    be shorter, and a row past the end gets an empty one)."""
+    chunk = -(-n // mesh.shape["data"])
+    return [slice(min(i * chunk, n), min((i + 1) * chunk, n))
+            for i in range(mesh.shape["data"])]
+
+
+def to_device(obj, device):
+    """``obj`` with every tensor of its dataclass fields (recursively) on
+    ``device``; anything else (mesh-laid arrays, flags) as it is.  On the
+    device a tensor already lies on, a no-op; differentiable."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if (dataclasses.is_dataclass(obj) and not isinstance(obj, type)
+            and not isinstance(obj, Mesh)):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def shard_scene(scene, mesh: Mesh, shard_triangles: bool = False):
+    """``scene`` laid out on ``mesh``: its tensors on the mesh's first
+    device (each data row takes its copy as it renders), and with
+    ``shard_triangles`` the brute intersector's triangle ranges split over
+    "model"."""
+    return dataclasses.replace(to_device(scene, mesh.first), mesh=mesh,
+                               shard_triangles=shard_triangles)
+
+
+def _triangle_ranges(soup, mp: int) -> list:
+    """The ``mp`` contiguous triangle ranges of "model" (``P("model")``'s
+    split, the last one shorter when the capacity does not divide)."""
+    chunk = -(-soup.capacity // mp)
+    return [(j * chunk, min((j + 1) * chunk, soup.capacity))
+            for j in range(mp)]
+
+
+def _soup_range(soup, lo: int, hi: int, device):
+    return type(soup)(**{f.name: getattr(soup, f.name)[lo:hi].to(device)
+                         for f in dataclasses.fields(soup)})
+
+
+def brute_closest_over_ranges(scene, o, d, block: int):
+    """The brute closest hit with the triangle ranges over the model
+    shards of ``scene.mesh``, rays over its data rows: per ray the closest
+    range's hit (``torch.argmin`` over the stacked t: the lowest range on
+    ties, as brute breaks them), differentiable through the gather."""
+    from prismarine_core_tpu_torch.ops.intersect import (
+        Hit, intersect_closest_brute)
+    mesh = scene.mesh
+    ranges = _triangle_ranges(scene.triangles, mesh.shape["model"])
+    out = []
+    for i, sl in enumerate(row_slices(mesh, o.shape[0])):
+        row_dev = mesh.devices[i][0]
+        hits = []
+        for j, (lo, hi) in enumerate(ranges):
+            dev = mesh.devices[i][j]
+            h = intersect_closest_brute(
+                _soup_range(scene.triangles, lo, hi, dev), o[sl].to(dev),
+                d[sl].to(dev), block=block)
+            tri = torch.where(h.tri >= 0, h.tri + lo, -1)
+            hits.append([x.to(row_dev) for x in (h.t, tri, h.u, h.v)])
+        stacked = [torch.stack(f) for f in zip(*hits)]
+        k = torch.argmin(stacked[0], dim=0)[None]
+        out.append([torch.gather(x, 0, k)[0].to(o.device) for x in stacked])
+    t, tri, u, v = (torch.cat(f) for f in zip(*out))
+    return Hit(t=t, tri=tri, u=u, v=v)
+
+
+def brute_occluded_over_ranges(scene, o, d, t_max, block: int):
+    """The brute any-hit query over the triangle ranges of
+    ``scene.mesh``'s model shards: occluded where any range occludes."""
+    from prismarine_core_tpu_torch.ops.intersect import occluded_brute
+    mesh = scene.mesh
+    ranges = _triangle_ranges(scene.triangles, mesh.shape["model"])
+    out = []
+    for i, sl in enumerate(row_slices(mesh, o.shape[0])):
+        occ = None
+        for j, (lo, hi) in enumerate(ranges):
+            dev = mesh.devices[i][j]
+            part = occluded_brute(
+                _soup_range(scene.triangles, lo, hi, dev), o[sl].to(dev),
+                d[sl].to(dev), t_max[sl].to(dev), block=block).to(o.device)
+            occ = part if occ is None else occ | part
+        out.append(occ)
+    return torch.cat(out)
+
+
+def _on_row(scene, row: Mesh):
+    """``scene`` as one data row sees it: its mesh marks (the scene's, the
+    sharded texture stack's) set to the row, so the row's queries and
+    fetches split over its model shards only."""
+    if scene.mesh is not None:
+        scene = dataclasses.replace(scene, mesh=row)
+    if getattr(scene.textures, "mesh", None) is not None:
+        scene = dataclasses.replace(
+            scene, textures=dataclasses.replace(scene.textures, mesh=row))
+    return scene
+
+
+def render_rows(mesh: Mesh, scene, camera, cfg: RenderConfig, cam_samples,
+                bounce_samples):
+    """``render_with_samples`` (interlace stage 0) with the rays split over
+    the data rows of ``mesh``: the camera rays made once, each row's
+    contiguous chunk traced on the row's device (the scene's replicated
+    tensors moved there, a sharded scene seeing the row as its mesh), the
+    radiance gathered on the mesh's first device and reduced to the image
+    there."""
+    check_supported(cfg)
+    first = mesh.first
+    camera = to_device(camera, first)
+    o, d = generate_rays(camera, cfg, cam_samples.to(first))
+    active = None
+    if cfg.interlace:
+        active = interlace_mask(cfg, 0, device=first).reshape(-1).repeat(
+            cfg.spp)
+    parts = []
+    for i, sl in enumerate(row_slices(mesh, o.shape[0])):
+        if sl.start == sl.stop:
+            continue
+        dev, row = mesh.devices[i][0], mesh.row(i)
+        row_scene = _on_row(to_device(scene, dev), row)
+        row_cfg = cfg.replace(mesh=row) if cfg.mesh is not None else cfg
+        rad, _ = trace(row_scene, row_cfg, o[sl].to(dev), d[sl].to(dev),
+                       bounce_samples[:, sl].to(dev),
+                       None if active is None else active[sl].to(dev))
+        parts.append(rad.to(first))
+    radiance = torch.cat(parts)
+    return radiance.reshape(cfg.spp, cfg.height, cfg.width, 3).mean(dim=0)
+
+
+def make_sharded_renderer(mesh: Mesh, cfg: RenderConfig,
+                          shard_triangles: bool = False):
+    """fn(scene, camera, cam_samples, bounce_samples) -> image f32[H,W,3]
+    on the mesh's first device, with the rays split over "data"
+    (``render_rows``).  ``shard_triangles``: render the scene as
+    ``shard_scene(..., shard_triangles=True)`` lays it out."""
+    def render(scene, camera, cam_samples, bounce_samples):
+        if shard_triangles:
+            scene = shard_scene(scene, mesh, shard_triangles=True)
+        return render_rows(mesh, scene, camera, cfg, cam_samples,
+                           bounce_samples)
+    return render
+
+
+# -- differentiable training step (inverse rendering) ---------------------
+
+def _as_mesh(mesh):
+    """``mesh`` as a Mesh, or None for one device: None, a device (or its
+    name) or a sequence of one device.  A bare sequence of more devices
+    raises: build it with ``make_mesh``."""
+    if mesh is None or isinstance(mesh, (Mesh, str, torch.device)):
+        return mesh if isinstance(mesh, Mesh) else None
+    if len(mesh) != 1:
+        raise ValueError(f"a sequence of {len(mesh)} devices is no mesh: "
+                         "build one with make_mesh(devices=...)")
+    return None
 
 
 def apply_params(scene, params, vertex_faces=None):
@@ -67,6 +333,20 @@ def apply_params(scene, params, vertex_faces=None):
                                triangles=tri)
 
 
+def rebuild_sharded(scene, cfg: RenderConfig):
+    """``scene`` with its BVH and sharded packets rebuilt from its soup
+    over ``cfg.mesh`` (the "pallas_sharded" loss does this each step, so
+    vertex gradients flow through each shard's re-evaluation)."""
+    from prismarine_core_tpu_torch.accel.lbvh import build_bvh
+    from prismarine_core_tpu_torch.parallel.shard_intersect import (
+        build_sharded_packets, constrain_packets)
+    bvh = build_bvh(scene.triangles, leaf_size=cfg.bvh_leaf_size)
+    sp = build_sharded_packets(bvh, mp=cfg.mesh.shape["model"],
+                               soup=scene.triangles)
+    return dataclasses.replace(scene, packets=constrain_packets(sp, cfg.mesh),
+                               bvh=None)
+
+
 def make_train_step(mesh, cfg: RenderConfig, lr: float = 5e-2,
                     shard_triangles: bool = False, lr_scale=None,
                     normalize_grads: bool = False, vertex_faces=None):
@@ -75,20 +355,29 @@ def make_train_step(mesh, cfg: RenderConfig, lr: float = 5e-2,
     tensors (``init_params`` or ``init_shared_params``), the new params
     detached, ``loss`` a 0-d tensor (the loss before the step).
 
-    ``lr_scale``: per-param multipliers of ``lr`` (vertex positions live
-    on another scale than colours).  ``normalize_grads``: divide each
-    gradient by its RMS (+1e-8) before the step, so ``lr`` is a distance
-    in parameter space.  ``vertex_faces`` (i32[T,3], ``shared_vertices``):
-    the shared-vertex parameterization.  ``shard_triangles`` exists for
-    the JAX signature; on one card there is nothing to shard."""
-    _check_mesh(mesh)
+    ``mesh``: a ``Mesh`` (the rays split over its data rows, gradients
+    summed over them by autograd) or one device (None, a device, or a
+    sequence of one).  ``lr_scale``: per-param multipliers of ``lr``
+    (vertex positions live on another scale than colours).
+    ``normalize_grads``: divide each gradient by its RMS (+1e-8) before
+    the step, so ``lr`` is a distance in parameter space.
+    ``vertex_faces`` (i32[T,3], ``shared_vertices``): the shared-vertex
+    parameterization.  ``shard_triangles`` exists for the JAX signature:
+    the triangle split is the scene's (``shard_scene``)."""
+    mesh = _as_mesh(mesh)
     del shard_triangles
     lr_scale = lr_scale or {}
 
     def loss_fn(params, scene, camera, cam_s, bounce_s, target):
         scene = apply_params(scene, params, vertex_faces)
-        img = render_with_samples(scene, camera, cfg, cam_s, bounce_s)
-        return torch.mean((img - target) ** 2)
+        if cfg.intersector == "pallas_sharded":
+            check_supported(cfg)
+            scene = rebuild_sharded(scene, cfg)
+        if mesh is None:
+            img = render_with_samples(scene, camera, cfg, cam_s, bounce_s)
+        else:
+            img = render_rows(mesh, scene, camera, cfg, cam_s, bounce_s)
+        return torch.mean((img - target.to(img.device)) ** 2)
 
     @torch.no_grad()
     def update(params, grads):

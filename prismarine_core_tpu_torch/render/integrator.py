@@ -19,10 +19,14 @@ texture fetches and perturb the shading normal by the bump map.  With
 (survivors reweighted by 1/q); an ``active`` mask (interlacing) retires
 lanes before the first bounce.
 
-The port runs ``intersector="brute"`` (the oracle), ``"bvh"`` (the
-default: the skip-link walk, ``accel/traverse.py``) and ``"pallas"`` (the
-packet query on the hand-written kernels); ``check_supported`` raises for
-knobs outside that slice.
+The port runs ``intersector="brute"`` (the oracle; on a scene laid out by
+``shard_scene(shard_triangles=True)`` over the mesh's triangle ranges),
+``"bvh"`` (the default: the skip-link walk, ``accel/traverse.py``),
+``"pallas"`` (the packet query on the hand-written kernels) and
+``"pallas_sharded"`` (the packet query over ``cfg.mesh``'s superblock
+ranges, ``parallel/shard_intersect.py``, whose winning shard carries the
+hit's surface fields to shading); ``check_supported`` raises for knobs
+outside that slice.
 """
 
 from __future__ import annotations
@@ -67,15 +71,26 @@ def _need_bvh(scene):
 
 
 def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
-                with_order: bool = False, order=None):
+                with_order: bool = False, order=None,
+                with_surface: bool = False):
     """Closest hit through the configured intersector.  ``t_cap`` zeroes
     lanes whose result is unused (the packet query drops them; "bvh", as
     in the JAX package, walks every lane to INF_DIST); ``with_order``
     also returns the packet query's coherence sort (None for "brute" and
-    "bvh") for the same bounce's shadow query."""
+    "bvh") for the same bounce's shadow query; ``with_surface`` (with
+    ``with_order``) also returns the "pallas_sharded" query's carried
+    surface fields (None on the other intersectors, which shade from the
+    soup)."""
+    carried = None
     if cfg.intersector == "brute":
-        hit, order = intersect_closest_brute(scene.triangles, o, d,
-                                             block=cfg.tri_block), None
+        if scene.shard_triangles:
+            from prismarine_core_tpu_torch.parallel.mesh import (
+                brute_closest_over_ranges)
+            hit = brute_closest_over_ranges(scene, o, d, cfg.tri_block)
+        else:
+            hit = intersect_closest_brute(scene.triangles, o, d,
+                                          block=cfg.tri_block)
+        order = None
     elif cfg.intersector == "bvh":
         from prismarine_core_tpu_torch.accel.traverse import (
             intersect_closest_bvh)
@@ -92,15 +107,28 @@ def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
             scene.bvh, scene.packets, scene.triangles, o, d, t_cap=t_cap,
             return_order=True, order=order,
             **_pallas_kwargs(cfg, any_hit=False))
+    elif cfg.intersector == "pallas_sharded" and cfg.mesh is not None:
+        from prismarine_core_tpu_torch.parallel.shard_intersect import (
+            sharded_intersect_closest)
+        hit, carried, order = sharded_intersect_closest(
+            cfg.mesh, scene.packets, o, d, t_cap=t_cap, return_surface=True,
+            return_order=True, query_kw=_pallas_kwargs(cfg, any_hit=False))
     else:
         check_supported(cfg)
         raise AssertionError("unreachable")
+    if with_order and with_surface:
+        return hit, order, carried
     return (hit, order) if with_order else hit
 
 
 def occluded(scene, o, d, t_max, cfg: RenderConfig, order=None):
     """Any-hit query through the configured intersector."""
     if cfg.intersector == "brute":
+        if scene.shard_triangles:
+            from prismarine_core_tpu_torch.parallel.mesh import (
+                brute_occluded_over_ranges)
+            return brute_occluded_over_ranges(scene, o, d, t_max,
+                                              cfg.tri_block)
         return occluded_brute(scene.triangles, o, d, t_max,
                               block=cfg.tri_block)
     if cfg.intersector == "bvh":
@@ -113,55 +141,77 @@ def occluded(scene, o, d, t_max, cfg: RenderConfig, order=None):
         return pk.occluded_pallas(scene.bvh, scene.packets, scene.triangles,
                                   o, d, t_max, order=order,
                                   **_pallas_kwargs(cfg, any_hit=True))
+    if cfg.intersector == "pallas_sharded" and cfg.mesh is not None:
+        from prismarine_core_tpu_torch.parallel.shard_intersect import (
+            sharded_occluded)
+        return sharded_occluded(cfg.mesh, scene.packets, o, d, t_max,
+                                order=order,
+                                query_kw=_pallas_kwargs(cfg, any_hit=True))
     check_supported(cfg)
     raise AssertionError("unreachable")
 
 
-def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None):
+def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
+                         carried: dict | None = None):
     """Per-ray surface fields at the hit (garbage where missed — callers
     mask): shading/geometric normals, uv, material record with its
     texture modulations.  ``kinds``: the materials' ``kinds_bound``
     (needed for a textured scene); a kind no material binds skips its
     whole fetch and filter chain, and the texture-less stub stack skips
-    uv, the tangent frame and every fetch."""
-    tri = torch.clamp(hit.tri, min=0).long()
-    soup = scene.triangles
-    w = (1.0 - hit.u - hit.v)[:, None]
-    uu = hit.u[:, None]
-    vv = hit.v[:, None]
-    ns = pm.normalize(w * soup.n0[tri] + uu * soup.n1[tri]
-                      + vv * soup.n2[tri])
-    v0 = pm.take_rows(soup.v0, tri)
-    e1 = pm.take_rows(soup.v1, tri) - v0
-    e2 = pm.take_rows(soup.v2, tri) - v0
-    ng = pm.normalize(pm.cross(e1, e2))
-    # geometric normal where the shading normal is degenerate
-    ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
-    mat = scene.materials.lookup(soup.mat_id[tri].long())
+    uv, the tangent frame and every fetch.  ``carried``: the sharded
+    query's interpolated fields (ns, ng, tang, uv, mat_id), used instead
+    of gathers from the soup (a husk on a distributed scene)."""
+    if carried is not None:
+        ng = pm.normalize(carried["ng"])
+        ns = pm.normalize(carried["ns"])
+        ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
+        uv = carried["uv"]
+        mat = scene.materials.lookup(carried["mat_id"].long())
+        tang = pm.normalize(carried["tang"])
+        tang = torch.where(torch.isfinite(tang).all(-1, keepdim=True),
+                           tang, 0.0)
+    else:
+        tri = torch.clamp(hit.tri, min=0).long()
+        soup = scene.triangles
+        w = (1.0 - hit.u - hit.v)[:, None]
+        uu = hit.u[:, None]
+        vv = hit.v[:, None]
+        ns = pm.normalize(w * soup.n0[tri] + uu * soup.n1[tri]
+                          + vv * soup.n2[tri])
+        v0 = pm.take_rows(soup.v0, tri)
+        e1 = pm.take_rows(soup.v1, tri) - v0
+        e2 = pm.take_rows(soup.v2, tri) - v0
+        ng = pm.normalize(pm.cross(e1, e2))
+        # geometric normal where the shading normal is degenerate
+        ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
+        mat = scene.materials.lookup(soup.mat_id[tri].long())
     albedo4 = mat.diffuse
     rough, metal = mat.specular[:, 1], mat.specular[:, 2]
     emissive = mat.emissive[:, :3]
     if getattr(scene.textures, "stub", False):
-        # uv only feeds texture fetches: zeros on texture-less scenes
-        uv = torch.zeros((tri.shape[0], 2), dtype=torch.float32,
-                         device=tri.device)
+        if carried is None:
+            # uv only feeds texture fetches: zeros on texture-less scenes
+            uv = torch.zeros((tri.shape[0], 2), dtype=torch.float32,
+                             device=tri.device)
     else:
         sample_tex = (sample_bicubic if cfg.texture_filter == "bicubic"
                       else sample_bilinear)
         stack = scene.textures
-        t0 = pm.take_rows(soup.t0, tri)
-        t1 = pm.take_rows(soup.t1, tri)
-        t2 = pm.take_rows(soup.t2, tri)
-        uv = w * t0 + uu * t1 + vv * t2
+        if carried is None:
+            t0 = pm.take_rows(soup.t0, tri)
+            t1 = pm.take_rows(soup.t1, tri)
+            t2 = pm.take_rows(soup.t2, tri)
+            uv = w * t0 + uu * t1 + vv * t2
         if kinds[3]:
             # tangent-space normal mapping: the tangent from the uv
             # derivatives, then the bump texture's normal in that frame
-            duv1 = t1 - t0
-            duv2 = t2 - t0
-            det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
-            rdet = pm.safe_rcp(det_uv)[:, None]
-            tang = pm.normalize((e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2])
-                                * rdet)
+            if carried is None:
+                duv1 = t1 - t0
+                duv2 = t2 - t0
+                det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+                rdet = pm.safe_rcp(det_uv)[:, None]
+                tang = pm.normalize((e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2])
+                                    * rdet)
             btex = sample_tex(stack, mat.tex_bump, uv)
             bitan = pm.cross(ns, tang)
             nt = btex[:, :3] * 2.0 - 1.0
@@ -276,8 +326,8 @@ def make_bounce_step(scene, cfg: RenderConfig):
         (o, d, beta, radiance, alive, prev_pdf, miss_dir, miss_beta,
          miss_pdf, bounce_i) = carry
         t_cap = torch.where(alive, INF_DIST, 0.0)
-        hit, order = closest_hit(scene, o, d, cfg, t_cap=t_cap,
-                                 with_order=True)
+        hit, order, carried = closest_hit(scene, o, d, cfg, t_cap=t_cap,
+                                          with_order=True, with_surface=True)
 
         # deferred env pickup: record (direction, throughput, bsdf pdf)
         # at the miss, fetch once after the loop
@@ -288,7 +338,7 @@ def make_bounce_step(scene, cfg: RenderConfig):
             miss_pdf = torch.where(miss, prev_pdf, miss_pdf)
 
         on_surf = alive & ~hit.missed
-        surf = _interpolate_surface(scene, hit, cfg, kinds)
+        surf = _interpolate_surface(scene, hit, cfg, kinds, carried)
         p = o + hit.t[:, None] * d
         n = pm.faceforward(surf["shading_normal"], d)
 

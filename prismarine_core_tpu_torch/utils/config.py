@@ -53,10 +53,12 @@ class RenderConfig:
     tri_block: int = 512
     bvh_leaf_size: int = 4
     #: "brute" | "bvh" | "packet" | "pallas" | "pallas_sharded"; the port
-    #: runs "brute", "bvh" (the skip-link walk, accel/traverse.py) and
+    #: runs "brute", "bvh" (the skip-link walk, accel/traverse.py),
     #: "pallas" (the packet query on the hand-written kernels,
-    #: accel/packet.py)
+    #: accel/packet.py) and "pallas_sharded" (the packet query over the
+    #: superblock ranges of ``mesh``, parallel/shard_intersect.py)
     intersector: str = "bvh"
+    #: the device mesh of "pallas_sharded" (parallel/mesh.py:make_mesh)
     mesh: object = None
     traverse_chunk: int = 0
     #: "bicubic", else bilinear
@@ -108,7 +110,6 @@ class RenderConfig:
 
 _KNOBS = "ROADMAP queue 1, 'Packet-path knobs off the main path'"
 _INTERSECTORS = "ROADMAP queue 1, 'Other intersectors'"
-_MULTI = "ROADMAP queue 1, 'Multi-GPU'"
 
 
 def _unsupported(what: str, item: str):
@@ -117,17 +118,17 @@ def _unsupported(what: str, item: str):
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for any knob outside the ported slice
-    (ValueError for an intersector no package has)."""
-    if cfg.mesh is not None:
-        _unsupported("mesh", _MULTI)
+    (ValueError for an intersector no package has, and for
+    "pallas_sharded" without a mesh)."""
     if cfg.intersector == "packet":
         _unsupported("intersector='packet' (the XLA packet path)",
                      _INTERSECTORS)
-    if cfg.intersector == "pallas_sharded":
-        _unsupported("intersector='pallas_sharded'", _MULTI)
-    if cfg.intersector not in ("brute", "bvh", "pallas"):
+    if cfg.intersector not in ("brute", "bvh", "pallas", "pallas_sharded"):
         raise ValueError(f"unknown intersector {cfg.intersector!r}")
-    if cfg.intersector == "pallas":
+    if cfg.intersector == "pallas_sharded" and cfg.mesh is None:
+        raise ValueError("intersector='pallas_sharded' needs cfg.mesh "
+                         "(parallel.mesh.make_mesh)")
+    if cfg.intersector in ("pallas", "pallas_sharded"):
         check_query_knobs(
             cull_impl=cfg.cull_impl, sort_mode=cfg.sort_mode,
             kernel_form=cfg.kernel_form, near_frac=cfg.near_frac,

@@ -720,3 +720,87 @@ def test_image_writers_take_card_tensors(cuda_device, tmp_path):
         assert ((tmp_path / f"card.{name}").read_bytes()
                 == (tmp_path / f"host.{name}").read_bytes()), name
     np.testing.assert_array_equal(np.load(tmp_path / "card.npy"), host)
+
+
+def _card_mesh(dev, n, mp):
+    """A mesh of ``n`` positions that all name the card."""
+    from prismarine_core_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(n, model_parallel=mp, devices=[dev] * n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", [2, 3])
+def test_sharded_query_on_a_card_mesh(cuda_device, mp):
+    """The sharded query on a 1 x mp mesh of the card (each shard on its
+    own superblock range, mp 3 padding the last) against the same query
+    on the plain versions (a CPU mesh) bit for bit, and against the
+    single-device query on the card: the triangle on all but counted tie
+    lanes, t equal where the triangle is, occlusion equal."""
+    from prismarine_core_tpu_torch.parallel import shard_intersect as tsi
+    from prismarine_core_tpu_torch.parallel.mesh import to_device
+    soup, bvh, ps = _scene(3000, 21, cuda_device)
+    o, d, t_cap = _rays(2048, 22, cuda_device, t_far=25.0)
+    mesh = _card_mesh(cuda_device, mp, mp)
+    sp = tsi.shard_packets(tsi.build_sharded_packets(bvh, mp), mesh)
+    launches = si.sb_intersect.launches
+    hit = tsi.sharded_intersect_closest(mesh, sp, o, d)
+    occ = tsi.sharded_occluded(mesh, sp, o, d, t_cap)
+    assert si.sb_intersect.launches - launches >= 2 * mp
+    cpu = torch.device("cpu")
+    cmesh = _card_mesh(cpu, mp, mp)
+    csp = tsi.shard_packets(tsi.build_sharded_packets(to_device(bvh, cpu),
+                                                      mp), cmesh)
+    chit = tsi.sharded_intersect_closest(cmesh, csp, o.cpu(), d.cpu())
+    assert torch.equal(hit.tri.cpu(), chit.tri)
+    assert torch.equal(hit.t.cpu(), chit.t)
+    assert torch.equal(occ.cpu(), tsi.sharded_occluded(
+        cmesh, csp, o.cpu(), d.cpu(), t_cap.cpu()))
+    ref = pk.intersect_closest_pallas(bvh, ps, soup, o, d)
+    same = hit.tri == ref.tri
+    assert int((~same).sum()) <= 2
+    assert torch.equal(hit.t[same], ref.t[same])
+    assert torch.equal(occ, pk.occluded_pallas(bvh, ps, soup, o, d, t_cap))
+
+
+@pytest.mark.gpu
+def test_sharded_frame_and_train_step_on_a_card_mesh(cuda_device):
+    """A "pallas_sharded" cornell frame on a 1 x 2 mesh of the card equal
+    to the single-device "pallas" frame bit for bit; the sharded train
+    step (the BVH rebuilt inside the loss) moves v0, v1 and v2 and
+    launches the walk."""
+    from prismarine_core_tpu_torch.models.camera import Camera
+    from prismarine_core_tpu_torch.models.scene import make_cornell_scene
+    from prismarine_core_tpu_torch.parallel import shard_intersect as tsi
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        init_params, make_train_step)
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    dev = cuda_device
+    cfg = RenderConfig(width=32, height=32, spp=1, max_bounces=3,
+                       intersector="pallas", cull_impl="pallas2")
+    rng = np.random.default_rng(6)
+    cam_s = torch.tensor(rng.random((cfg.n_rays, 4), dtype=np.float32),
+                         device=dev)
+    bounce_s = torch.tensor(rng.random((3, cfg.n_rays, 11),
+                                       dtype=np.float32), device=dev)
+    scene = make_cornell_scene(device=dev)
+    cam = Camera.look_at((0.0, 0.0, 3.4), (0.0, 0.0, 0.0), fov_y_deg=50.0,
+                         device=dev)
+    ref = render_with_samples(scene, cam, cfg, cam_s, bounce_s)
+    mesh = _card_mesh(dev, 2, 2)
+    cfg_sh = cfg.replace(intersector="pallas_sharded", mesh=mesh)
+    img = render_with_samples(tsi.distribute_scene(scene, mesh), cam, cfg_sh,
+                              cam_s, bounce_s)
+    assert torch.equal(img, ref)
+
+    step = make_train_step(mesh, cfg_sh.replace(kernel_form="mxu"))
+    dscene = tsi.distribute_scene(scene, mesh, shard_soup=False)
+    params = init_params(dscene)
+    launches = si.sb_intersect_mxu.launches
+    new, loss = step(params, dscene, cam, cam_s, bounce_s, ref + 0.05)
+    assert si.sb_intersect_mxu.launches > launches
+    assert bool(torch.isfinite(loss))
+    for k in ("v0", "v1", "v2"):
+        dv = new[k] - params[k]
+        assert bool(torch.isfinite(dv).all()) and bool((dv != 0).any()), k

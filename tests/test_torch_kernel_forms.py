@@ -142,11 +142,11 @@ def test_mt2_plain_equals_mt_plain(scenes):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert bool((a[1] >= 0).any())
     for strategy in ("two_round", "single"):
-        sm, _ = tpk._run_packet_pallas(*targs, kernel_form="mt",
-                                       strategy=strategy, k_round=2)
-        s2, _ = tpk._run_packet_pallas(*targs, kernel_form="mt2",
-                                       strategy=strategy, k_round=2)
-        assert torch.equal(sm, s2)
+        tm, sm, _ = tpk._run_packet_pallas(*targs, kernel_form="mt",
+                                           strategy=strategy, k_round=2)
+        t2, s2, _ = tpk._run_packet_pallas(*targs, kernel_form="mt2",
+                                           strategy=strategy, k_round=2)
+        assert torch.equal(sm, s2) and torch.equal(tm, t2)
 
 
 def _hit_t(js, slot, o, d):
@@ -185,8 +185,8 @@ def test_query_form_matches_jax(scenes, form, strategy):
     kw = dict(strategy=strategy, k_round=2)
     tj, sj, _ = jpk._run_packet_pallas(*jargs, kernel_form=form,
                                        cull_impl="pallas2", **kw)
-    st, _ = tpk._run_packet_pallas(*targs, kernel_form=form, **kw)
-    sm, _ = tpk._run_packet_pallas(*targs, kernel_form="mt", **kw)
+    _, st, _ = tpk._run_packet_pallas(*targs, kernel_form=form, **kw)
+    _, sm, _ = tpk._run_packet_pallas(*targs, kernel_form="mt", **kw)
     sj, st, sm = np.asarray(sj), st.numpy(), sm.numpy()
     assert (st[t_cap == 0] == -1).all()
     assert (sj >= 0).sum() > o.shape[0] // 10

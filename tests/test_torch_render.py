@@ -148,13 +148,15 @@ def test_render_entry_point_and_unported_knobs():
     for bad in (dict(reuse_bounce_order=True), dict(primary_identity=True),
                 dict(primary_tile_order=True), dict(sort_mode="group"),
                 dict(cull_impl="xla"),
-                dict(near_frac=0.5), dict(intersector="packet"),
-                dict(intersector="pallas_sharded")):
+                dict(near_frac=0.5), dict(intersector="packet")):
         with pytest.raises(NotImplementedError):
             tint.render(scene, cam, cfg.replace(**bad),
                         torch.Generator().manual_seed(1))
     with pytest.raises(ValueError):            # no such kernel form
         tint.render(scene, cam, cfg.replace(kernel_form="mt3"),
+                    torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="cfg.mesh"):  # no mesh to shard on
+        tint.render(scene, cam, cfg.replace(intersector="pallas_sharded"),
                     torch.Generator().manual_seed(1))
     with pytest.raises(ValueError):            # no such intersector
         tint.render(scene, cam, cfg.replace(intersector="octree"),

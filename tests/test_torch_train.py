@@ -8,8 +8,9 @@
   (the gradients differ by float32 rounding only, tests/
   test_torch_gradients.py).
 * Ten normalized-SGD steps descend (tests/test_parallel.py:101-111).
-* ``shared_vertices`` equals JAX's; a multi-device mesh raises; the
-  parameter interop round-trips.
+* ``shared_vertices`` equals JAX's; a bare list of several devices
+  raises (a mesh is built with ``make_mesh``); the parameter interop
+  round-trips.
 """
 
 import numpy as np
@@ -129,10 +130,14 @@ def test_shared_vertices_match_jax(setup):
 
 
 def test_multi_device_mesh_raises():
+    """One device takes None, a device or a sequence of one; several
+    devices take a Mesh (tests/test_torch_parallel.py), and a bare
+    sequence of them raises."""
     cfg = RenderConfig(**CFG_KW)
-    for one in (None, "cpu", torch.device("cpu"), [torch.device("cpu")]):
+    for one in (None, "cpu", torch.device("cpu"), [torch.device("cpu")],
+                tmesh.make_mesh(2, devices=["cpu"] * 2)):
         tmesh.make_train_step(one, cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="make_mesh"):
         tmesh.make_train_step([torch.device("cpu")] * 2, cfg)
 
 
