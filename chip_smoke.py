@@ -5,9 +5,11 @@ the BVH walk and the "bvh" frame (RenderConfig's default intersector),
 Russian roulette, interlacing, depth of field, the 360 camera, the
 boundary (edge-sampled) gradients, the application layer (the
 "rounds" strategy, the progressive renderer, checkpoints, the CLI, OBJ
-ingest, bench.py's teapot and independent-sampling frames) and the
+ingest, bench.py's teapot and independent-sampling frames), the
 device mesh ("pallas_sharded", sharded textures, the sharded train step,
-on meshes that repeat the card) on one NVIDIA GPU.
+on meshes that repeat the card), the reference's default packet cull
+(cull_impl="pallas") and the mesh over processes (two worker processes
+sharing the card) on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -170,13 +172,41 @@ Phases (any failure exits non-zero):
                 "pallas_sharded" train step under "mxu" at mesh 1x2 (the
                 BVH rebuilt inside the loss) against one single-card step:
                 the loss within 5e-3 relative, each update's cosine, v0-v2
-                moved and finite, sb_intersect_mxu launched.
+                moved and finite, sb_intersect_mxu launched;
+ 17. default cull and processes — (a) the bench frame under the
+                reference's default cull_impl="pallas" (phase_default_cull):
+                block_cull over the 2,048 block boxes, the pairs' block masks
+                from its table, round 2 re-culled per ray over the 256
+                superblocks (recull "sb"): every block_cull input of the
+                bounce-0 and bounce-1 steps and every sb_intersect input of
+                the bounce-1 step equal to the plain versions, no pair_cull;
+                the bounce-1 closest query's t bit for bit equal to
+                "pallas2"'s on every lane (tie lanes counted), recull
+                "kernel" and "tn" equal to "sb", occlusion identical, pairs
+                and live sub-blocks per round, alternating CUDA-event times;
+                block_cull at 2,048 boxes timed against the 256-box recull
+                with its bound and dense bound; the frame through phase 4's
+                gates and measurements (launches exactly 12 / 0 / 12) and the
+                image gate against phase 4's frame; one frame of
+                RenderConfig(intersector="pallas")'s own defaults against the
+                same under "pallas2"; (b) the mesh over processes
+                (phase_multiprocess): two worker processes (this script with
+                --worker), each with two positions on the card, over gloo
+                with CUDA tensors staged through the host: the bench frame on
+                a global 2x2 mesh whose "model" axis crosses them,
+                bit-identical to phase 16b's; tests/test_multihost.py's two
+                frames, the means within 1e-6 and each equal to a one-process
+                mesh's; phase 16d's 1x2 "mxu" step with its shards in the two
+                processes, its loss equal to 16d's; each process's launches,
+                device busy and wall.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
 JSON (the five ported kernels and bvh_walk, with their launches on each
-path, the sharded ones included, and every frame's, the step's, the edge
-path's, the application phase's and the mesh phase's results),
+path, the sharded, default-cull and per-process ones included, and
+block_cull's 2,048-box time and bound beside its 256-box ones; and every
+frame's, the step's, the edge path's, the application phase's, the mesh
+phase's, the default cull's and the processes' results),
 nvidia-smi's line, and ``{"ok": true, "device": {...}}``.  The script
 exits 0 only when every phase passes.  Nothing falls back to the CPU.
 """
@@ -263,6 +293,16 @@ MESH_FRAME, MESH_TEXTURED, MESH_TRAIN = (2, 2), (2, 4), (1, 2)
 #: (__graft_entry__.py:76-123): 1024x1024, 8 bounces
 BIG_W = BIG_H = 1024
 BIG_BOUNCES = 8
+#: phase 17a: each kernel's launches on the bench frame under the default
+#: cull ("pallas"): per bounce two block culls of the closest query (the
+#: blocks, then round 2's superblock re-cull) and one of the shadow query,
+#: one pair intersector run each, and no pair_cull
+DEFAULT_CULL_LAUNCHES = {"block_cull": 3 * BOUNCES,
+                         "sb_intersect": 3 * BOUNCES}
+#: phase 17b: worker processes, each with this many mesh positions (all of
+#: them the one card), and each worker's time limit in seconds
+MP_PROCESSES, MP_POSITIONS = 2, 2
+MP_TIMEOUT = 400
 #: the profiler's own range around each scheduled step (a span, no op)
 STEP_RANGE = "ProfilerStep"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
@@ -424,6 +464,25 @@ def mxu_bounds(scene, rays, tn, tx, sm, sx):
     return hit_parity, slot_parity
 
 
+def block_cull_work(rays, box_rows, n_live):
+    """cull_work's block cull half, at any box rows: the survivor share of
+    the live tiles' (tile, box) entries, the fp32 operations (the tile
+    reductions, the reject of every (live tile, box), all 128 rays of each
+    survivor; the dense count beside them) and the bytes (the rays of the
+    live tiles, the box rows, the whole output)."""
+    from prismarine_core_tpu_torch.ops import cull
+    n_live = int(n_live)
+    nt, nb = rays.shape[0] // 128 - 1, box_rows.shape[1]
+    surv = int((~cull.block_cull_rejects(rays, box_rows, n_live)[
+        :n_live]).sum())
+    return dict(share=surv / max(n_live * nb, 1),
+                ops=(n_live * 128 * BOUND_OPS + n_live * nb * REJECT_OPS
+                     + surv * 128 * SLAB_OPS),
+                dense_ops=n_live * 128 * nb * SLAB_OPS,
+                bytes=(n_live * 128 * rays.shape[1] * 4
+                       + box_rows.numel() * 4 + nt * nb * 4))
+
+
 def cull_work(rays, sb_rows, n_live, pt, psb, n_real, sbbox, pm):
     """What the two cull kernels' inputs need, from the plain emulation of
     their reject (ops/cull.py, deciding as the kernels do): the survivor
@@ -438,22 +497,14 @@ def cull_work(rays, sb_rows, n_live, pt, psb, n_real, sbbox, pm):
     tiles in the real pairs, their indices, the box table)."""
     import torch
     from prismarine_core_tpu_torch.ops import cull
-    n_live, n_real = int(n_live), int(n_real)
-    nt, nb = rays.shape[0] // 128 - 1, sb_rows.shape[1]
+    n_real = int(n_real)
     tile_b = 128 * rays.shape[1] * 4
-    bc_surv = int((~cull.block_cull_rejects(rays, sb_rows, n_live)[
-        :n_live]).sum())
     surv = cull.pair_cull_survivors(pt, psb, n_real, rays, sbbox)
     passing = ((pm[:, None] >> torch.arange(8, device=pm.device)) & 1) == 1
     n_pass = int((surv & passing).sum())
     n_fail = int((surv & ~passing).sum())
     n_tiles = int(torch.unique(pt[:n_real]).numel())
-    return {"block_cull": dict(
-                share=bc_surv / max(n_live * nb, 1),
-                ops=(n_live * 128 * BOUND_OPS + n_live * nb * REJECT_OPS
-                     + bc_surv * 128 * SLAB_OPS),
-                dense_ops=n_live * 128 * nb * SLAB_OPS,
-                bytes=n_live * tile_b + sb_rows.numel() * 4 + nt * nb * 4),
+    return {"block_cull": block_cull_work(rays, sb_rows, n_live),
             "pair_cull": dict(
                 share=(n_pass + n_fail) / max(n_real * 8, 1),
                 ops=(n_tiles * 128 * BOUND_OPS + n_real * 8 * REJECT_OPS
@@ -2421,7 +2472,387 @@ def phase_mesh(scene, cam, cfg, dev, img, samples):
         f"(the BVH and the sharded packets rebuilt inside the loss); peak "
         f"memory {peak / 2**20:.1f} MiB")
     log(f"[mesh] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return out, img_sh
+
+
+def phase_default_cull(scene, cam, cfg, dev, img):
+    """Phase 17a: the bench frame under the reference's default cull
+    (``cull_impl="pallas"``: block_cull over the 2,048 block boxes, the
+    pairs' masks from its table, round 2 re-culled per ray over the
+    superblocks, recull "sb").  (a) every block_cull input of the bounce-0
+    and bounce-1 steps (2,048 and 256 boxes) and every sb_intersect input
+    of the bounce-1 step against the plain versions exactly, no pair_cull
+    call; (b) the bounce-1 closest query's t bit for bit equal to
+    "pallas2"'s on every lane (slots differ only on those equal-t tie
+    lanes, counted), recull "kernel" and "tn" equal to "sb", occlusion
+    identical, pairs and live sub-blocks of each round against "pallas2",
+    CUDA-event ms in alternating turns; (c) block_cull at 2,048 boxes:
+    CUDA-event ms against the 256-box recull in alternating turns, the
+    plain version's ms, the bound from block_cull_work's count and the
+    dense bound; (d) the frame through phase_frame's gates and
+    measurements (launches exactly DEFAULT_CULL_LAUNCHES) and the image
+    gate against phase 4's "pallas2" frame; (e) one frame of
+    RenderConfig(intersector="pallas")'s own defaults (K 8, any-hit
+    "rounds", independent samples) at the bench's scene and size against
+    the same under "pallas2" by the image gate."""
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
+    from prismarine_core_tpu_torch.render.integrator import (
+        _pallas_kwargs, initial_carry, make_bounce_step, render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import RenderConfig
+    t_phase = time.perf_counter()
+    cfg_p = cfg.replace(cull_impl="pallas")
+    ps = scene.packets
+    widths = [cull.box_rows_from_blocks(ps.block_lo, ps.block_hi).shape[1],
+              cull.box_rows_from_blocks(ps.sb_lo, ps.sb_hi).shape[1]]
+    out = {}
+
+    # (a) the kernel inputs of the bounce-0 and bounce-1 steps
+    o, d, _, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
+    seen = {k: [] for k in MT_PATH}
+    errs, recorded = {}, {}
+    for tag, carry, smp in (("bounce0", initial_carry(o, d), bounce_s[0]),
+                            ("bounce1", carry1, bounce_s[1])):
+        with recorded_calls() as calls:
+            make_bounce_step(scene, cfg_p)(carry, smp)
+        n = {k: len(v) for k, v in calls.items()}
+        boxes = [args[1].shape[1] for args in calls["block_cull"]]
+        require(n == {"block_cull": 3, "pair_cull": 0, "sb_intersect": 3}
+                and boxes == [widths[0], widths[1], widths[0]],
+                f"default cull {tag}: calls {n}, box widths {boxes}")
+        check = calls if tag == "bounce1" else {
+            "block_cull": calls["block_cull"]}
+        e, n_checked, plain_ms = check_recorded(check, f"default cull {tag}",
+                                                seen)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        for (rays, rows, n_live), q in zip(calls["block_cull"],
+                                           ("closest round 1",
+                                            "closest round 2 (recull sb)",
+                                            "shadow")):
+            tn = cull.block_cull(rays, rows, n_live)
+            log(f"[default cull] {tag} {q}: block_cull over {rows.shape[1]} "
+                f"boxes, n_live {int(n_live)}, "
+                f"{int((tn < 1e4).sum())} passing (tile, box) entries")
+        log(f"[default cull] {tag}: calls {n}; {n_checked} kernel inputs == "
+            f"plain exactly ({plain_ms:.0f} ms of plain versions)")
+        recorded[tag] = calls
+    out["max_abs_err"] = errs
+
+    # (b) the bounce-1 closest and shadow queries against "pallas2"
+    queries = step_queries(scene, cfg, carry1, bounce_s[1])
+    (c_args, c_kw), (s_args, s_kw) = queries["closest"], queries["shadow"]
+    inputs = pk._detached(*c_args[:2], c_args[3], c_args[4], c_kw["t_cap"])
+
+    def closest(c):
+        return pk._run_packet_pallas(*inputs, **_pallas_kwargs(c, False))
+
+    def rounds(c):
+        """(pairs, live sub-blocks) of each sb_intersect call of a query."""
+        with recorded_calls(("sb_intersect",)) as calls:
+            res = closest(c)
+        return res, [(int(a[3]), int(si.live_counts(a[2], a[3]).sum()))
+                     for a in calls["sb_intersect"]]
+    (t2, s2, _), work2 = rounds(cfg)
+    (tp, sp, _), work_p = rounds(cfg_p)
+    require(torch.equal(tp, t2), "default cull: closest t differs from "
+            "pallas2")
+    ties = int((sp != s2).sum())
+    hits = int((s2 >= 0).sum())
+    require(ties <= 1e-4 * hits, f"default cull: {ties} tie lanes")
+    reculls = {}
+    for rc in ("kernel", "tn"):
+        (t_rc, s_rc, _), work_rc = rounds(cfg_p.replace(recull=rc))
+        require(torch.equal(t_rc, tp), f"default cull: recull {rc} t "
+                "differs from sb")
+        reculls[rc] = dict(work=work_rc, ties=int((s_rc != sp).sum()))
+    occ2 = pk.occluded_pallas(*s_args, **s_kw)
+    occp = pk.occluded_pallas(*s_args, **dict(
+        s_kw, **_pallas_kwargs(cfg_p, any_hit=True)))
+    require(torch.equal(occp, occ2), "default cull: occlusion differs")
+    q_ms, _ = alternating_ms({
+        "pallas2": lambda: closest(cfg), "pallas": lambda: closest(cfg_p),
+        "pallas_kernel": lambda: closest(cfg_p.replace(recull="kernel")),
+        "pallas_tn": lambda: closest(cfg_p.replace(recull="tn"))},
+        turns=3, reps=3)
+    out["closest_bounce1"] = dict(
+        ties=ties, hits=hits, rounds_pallas2=work2, rounds_pallas=work_p,
+        reculls=reculls, occluded=int(occp.sum()), ms=q_ms)
+    log(f"[default cull] bounce-1 closest: t == pallas2 on all "
+        f"{t2.numel()} lanes, {ties} tie lanes of {hits} hits; (pairs, "
+        f"live sub-blocks) by round: pallas {work_p}, pallas2 {work2}, "
+        f"recull kernel {reculls['kernel']['work']}, tn "
+        f"{reculls['tn']['work']} (t == sb); occlusion identical "
+        f"({int(occp.sum())} occluded); ms "
+        f"{ {k: round(v, 4) for k, v in q_ms.items()} }")
+
+    # (c) block_cull at 2,048 boxes (closest round 1) beside the 256-box
+    # recull of the same query
+    b2048, b256 = recorded["bounce1"]["block_cull"][:2]
+    ms, turns = alternating_ms({
+        "2048": lambda: cull.block_cull(*b2048),
+        "256": lambda: cull.block_cull(*b256)})
+    plain_ms = cuda_ms(lambda: cull.block_cull_plain(*b2048), 1)
+    res = {}
+    for k, args in (("2048", b2048), ("256", b256)):
+        w = block_cull_work(*args)
+        b, by = bound(w["ops"], w["bytes"])
+        db, dby = bound(w["dense_ops"], w["bytes"])
+        res[k] = dict(ms=ms[k], turns_ms=turns[k], bound_ms=b, bound_by=by,
+                      dense_bound_ms=db, dense_bound_by=dby,
+                      survivors=w["share"])
+        log(f"[default cull] block_cull at {args[1].shape[1]} boxes: "
+            f"{ms[k]:.4f} ms "
+            f"(turns {[round(x, 4) for x in turns[k]]}), bound {b:.4f} ms "
+            f"by {by} ({b / ms[k]:.3f} of it), dense bound {db:.4f} ms by "
+            f"{dby}, survivors of the reject {w['share']:.4f}")
+    res["2048"]["plain_ms"] = plain_ms
+    log(f"[default cull] block_cull_plain at 2048 boxes {plain_ms:.1f} ms")
+    out["block_cull"] = res
+    del recorded, seen, queries, inputs
+
+    # (d) the frame
+    tag = "frame default cull"
+    img_p, frame, samples_p = phase_frame(scene, cam, cfg_p, dev, tag=tag,
+                                          kernels=("block_cull",
+                                                   "sb_intersect"))
+    require(frame["launches"]["block_cull"] ==
+            DEFAULT_CULL_LAUNCHES["block_cull"]
+            and frame["launches"]["sb_intersect"] ==
+            DEFAULT_CULL_LAUNCHES["sb_intersect"],
+            f"{tag}: launches {frame['launches']}")
+    frame["gate"] = image_gate(img_p, img, tag, "pallas2 frame (phase 4)")
+    out["frame"] = frame
+
+    # (e) RenderConfig(intersector="pallas")'s own defaults
+    cfg_d = RenderConfig(width=W, height=H, max_bounces=BOUNCES,
+                         intersector="pallas")
+    smp = frame_samples(cfg_d, dev)
+    read = zero_launches()
+    t0 = time.perf_counter()
+    img_d = render_with_samples(scene, cam, cfg_d, *smp)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    launches = read()
+    t0 = time.perf_counter()
+    img_d2 = render_with_samples(scene, cam, cfg_d.replace(
+        cull_impl="pallas2"), *smp)
+    torch.cuda.synchronize()
+    wall_d2 = time.perf_counter() - t0
+    tag = "frame pallas defaults"
+    require(launches["block_cull"] > 0 and launches["sb_intersect"] > 0,
+            f"{tag}: launches {launches}")
+    gate = image_gate(img_d, img_d2, tag, "same config under pallas2")
+    out["frame_pallas_defaults"] = dict(
+        launches=launches, wall_s=wall_d, wall_s_pallas2=wall_d2,
+        mean=float(img_d.mean()), gate=gate)
+    log(f"[{tag}] launches {launches}; {wall_d:.3f} s (pallas2 "
+        f"{wall_d2:.3f} s, each a first frame); mean "
+        f"{float(img_d.mean()):.6f}")
+    log(f"[default cull] phase 17a in {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def cases_module():
+    """tests/torch_multihost_cases.py of this checkout, by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_multihost_cases", REPO / "tests" / "torch_multihost_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worker_main(work: Path) -> int:
+    """One process of phase 17b (``chip_smoke.py --worker DIR``, with the
+    coordinator's environment): MP_POSITIONS positions, each the card,
+    over gloo with CUDA tensors staged through the host.  Prints one
+    ``WORKER {json}`` line; saves its frames under ``DIR``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    from prismarine_core_tpu_torch.parallel import distributed
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        init_params, make_sharded_renderer, make_train_step)
+    from prismarine_core_tpu_torch.parallel.shard_intersect import (
+        distribute_scene)
+    cases = cases_module()
+    dev = torch.device("cuda", 0)
+    ctx = distributed.init_distributed(local_devices=[dev] * MP_POSITIONS)
+    rank = ctx.rank
+    t_start = time.perf_counter()
+    scene, cam, cfg = bench_setup(dev)
+    given = torch.load(work / "inputs.pt")
+    samples = frame_samples(cfg, dev)
+    require(all(float(s.double().sum()) == v for s, v in
+                zip(samples, given["samples_sum"])),
+            "worker: sample arrays differ from the parent's")
+    res = {"rank": rank, "nccl": ctx.nccl_device is not None}
+
+    # (i) the bench frame, "model" across the processes
+    mesh = distributed.global_mesh(4, 2, order=cases.CROSSING)
+    require(mesh.ranks == ((0, 1), (0, 1)), f"mesh ranks {mesh.ranks}")
+    dscene = distribute_scene(scene, mesh)
+    renderer = make_sharded_renderer(mesh, cfg.replace(
+        intersector="pallas_sharded", mesh=mesh))
+    renderer(dscene, cam, *samples)
+    torch.cuda.synchronize()
+    read = zero_launches()
+    t0 = time.perf_counter()
+    img = renderer(dscene, cam, *samples)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches = read()
+    prof = profile_once(lambda: renderer(dscene, cam, *samples),
+                        f"multiprocess frame rank {rank}")
+    torch.save(img.cpu(), work / f"frame_{rank}.pt")
+    res["frame_2x2"] = dict(launches=launches, wall_ms=wall, profile=prof)
+    del dscene
+
+    # (ii) the frames of tests/test_multihost.py
+    inputs = dict(np.load(work / "cases.npz"))
+    for name, fn, mp in (("brute", cases.brute_frame, 1),
+                         ("hall", cases.hall_frame, 2)):
+        x = fn(distributed.global_mesh(4, mp), inputs, dev)
+        torch.save(x.cpu(), work / f"{name}_{rank}.pt")
+        res[f"mean_{name}"] = float(x.double().mean())
+
+    # (iii) phase 16d's train step, its two shards in two processes
+    mesh = distributed.global_mesh(2, 2, order=(0, MP_POSITIONS))
+    require(mesh.ranks == ((0, 1),), f"train mesh ranks {mesh.ranks}")
+    cfg_xs = cfg.replace(kernel_form="mxu", intersector="pallas_sharded",
+                         mesh=mesh)
+    start = {k: v.clone() for k, v in init_params(scene).items()}
+    start["mat_diffuse"][:, :3] *= 0.5
+    dscene = distribute_scene(scene, mesh, shard_soup=False)
+    step = make_train_step(mesh, cfg_xs, **TRAIN_KW)
+    target = given["target"].to(dev)
+    read = zero_launches()
+    t0 = time.perf_counter()
+    params, loss = step(start, dscene, cam, *samples, target)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    res["train_1x2"] = dict(loss=float(loss), launches=read(),
+                            step_ms=step_ms, update_abs_sum={
+                                k: float((params[k] - start[k]).abs().sum())
+                                for k in ("v0", "v1", "v2")})
+    res["wall_s"] = time.perf_counter() - t_start
+    print("WORKER " + json.dumps(res), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def phase_multiprocess(dev, img_2x2, loss_1x2, img, samples):
+    """Phase 17b: the mesh over processes.  MP_PROCESSES worker processes
+    (``worker_main``), each with MP_POSITIONS positions on the one card,
+    over gloo with CUDA tensors staged through the host (the kernels
+    built here before they start, so they only load them): (i) the bench
+    frame on a global 2x2 mesh whose "model" axis crosses the processes,
+    bit-identical to phase 16b's one-process 2x2 frame; (ii)
+    tests/test_multihost.py's two frames on its layout, the processes'
+    means within 1e-6 and each frame bit-identical to the same frame on a
+    one-process mesh of the card; (iii) phase 16d's 1x2 "mxu" train step
+    with its shards in the two processes, its loss equal to phase 16d's.
+    Each process's launches, device busy and wall are logged: they show
+    the per-process cost of the layout on one card, not scaling across
+    cards.  A worker that fails, exits non-zero or outlives MP_TIMEOUT
+    fails the phase."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    import numpy as np
+    import torch
+    from prismarine_core_tpu_torch.parallel.distributed import free_port
+    from prismarine_core_tpu_torch.parallel.mesh import make_mesh
+    cases = cases_module()
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mp_"))
+    try:
+        torch.save({"target": img.cpu(), "samples_sum": [
+            float(s.double().sum()) for s in samples]}, work / "inputs.pt")
+        inputs = cases.make_inputs(0)
+        np.savez(work / "cases.npz", **inputs)
+        port = free_port()
+        procs = []
+        for rank in range(MP_PROCESSES):
+            env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       NUM_PROCESSES=str(MP_PROCESSES), PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--worker",
+                 str(work)], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            logs.append("")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, text) in enumerate(zip(procs, logs)):
+            for line in text.splitlines():
+                if not line.startswith("WORKER "):
+                    log(f"[multiprocess rank {rank}] {line}")
+            require(p.returncode == 0, f"multiprocess: worker {rank} exit "
+                    f"{p.returncode}")
+        results = [json.loads(next(line[7:] for line in text.splitlines()
+                                   if line.startswith("WORKER ")))
+                   for text in logs]
+        wall = time.perf_counter() - t_phase
+
+        frames = [torch.load(work / f"frame_{r}.pt").to(dev)
+                  for r in range(MP_PROCESSES)]
+        for r, x in enumerate(frames):
+            require(torch.equal(x, img_2x2), f"multiprocess: rank {r}'s 2x2 "
+                    "frame differs from phase 16b's")
+        out = {"ranks": results, "wall_s": wall, "per_rank": [
+            dict(rank=r["rank"], frame_wall_ms=r["frame_2x2"]["wall_ms"],
+                 frame_busy_ms=r["frame_2x2"]["profile"]["busy_ms"],
+                 frame_idle_share=r["frame_2x2"]["profile"]["idle_share"],
+                 frame_walk_ms=r["frame_2x2"]["profile"]["walk_ms"],
+                 train_step_ms=r["train_1x2"]["step_ms"],
+                 train_loss=r["train_1x2"]["loss"],
+                 worker_wall_s=r["wall_s"]) for r in results]}
+        for name, fn, mp in (("brute", cases.brute_frame, 1),
+                             ("hall", cases.hall_frame, 2)):
+            means = [res[f"mean_{name}"] for res in results]
+            require(abs(means[0] - means[1]) < 1e-6 and means[0] > 1e-3,
+                    f"multiprocess {name}: means {means}")
+            ref = fn(make_mesh(4, mp, devices=[dev] * 4), inputs, dev).cpu()
+            for r in range(MP_PROCESSES):
+                require(torch.equal(torch.load(work / f"{name}_{r}.pt"), ref),
+                        f"multiprocess {name}: rank {r} differs from the "
+                        "one-process mesh")
+            out[f"means_{name}"] = means
+        for res in results:
+            require(res["train_1x2"]["loss"] == loss_1x2,
+                    f"multiprocess train: rank {res['rank']} loss "
+                    f"{res['train_1x2']['loss']} vs phase 16d's {loss_1x2}")
+            require(res["train_1x2"]["launches"]["sb_intersect_mxu"] > 0,
+                    "multiprocess train: no sb_intersect_mxu")
+        for res in results:
+            f, t = res["frame_2x2"], res["train_1x2"]
+            log(f"[multiprocess] rank {res['rank']}: frame 2x2 launches "
+                f"{f['launches']}, {f['wall_ms']:.1f} ms, device busy "
+                f"{f['profile']['busy_ms']:.3f} ms, idle share "
+                f"{f['profile']['idle_share']:.4f}; train 1x2 loss "
+                f"{t['loss']:.9g}, launches {t['launches']}, "
+                f"{t['step_ms']:.1f} ms; worker wall {res['wall_s']:.1f} s")
+        log(f"[multiprocess] {MP_PROCESSES} processes x {MP_POSITIONS} "
+            f"positions on one card: the 2x2 frame bit-identical to phase "
+            f"16b's; brute means {out['means_brute']}, hall means "
+            f"{out['means_hall']}, each == the one-process mesh; train loss "
+            f"== phase 16d's {loss_1x2:.9g}; phase 17b in {wall:.1f} s "
+            "(per-process cost of the layout, not scaling across cards)")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -2470,10 +2901,14 @@ def main() -> int:
     features = phase_features(scene, cam, cfg, dev, img, samples)
     edge = phase_edge(scene, cam, cfg, dev)
     app = phase_application(scene, cam, cfg, dev)
-    mesh = phase_mesh(scene, cam, cfg, dev, img, samples)
+    mesh, img_2x2 = phase_mesh(scene, cam, cfg, dev, img, samples)
+    default_cull = phase_default_cull(scene, cam, cfg, dev, img)
+    multiprocess = phase_multiprocess(dev, img_2x2,
+                                      mesh["train_1x2"]["loss"], img, samples)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0),
                         app["rounds"]["max_abs_err"].get(k, 0.0),
+                        default_cull["max_abs_err"].get(k, 0.0),
                         *(mesh[f"query_1x{mp}"]["max_abs_err"].get(k, 0.0)
                           for mp in QUERY_MESHES))
                  for k, v in step_errs.items()}
@@ -2501,7 +2936,12 @@ def main() -> int:
                 for mp in QUERY_MESHES},
              "frame_sharded_2x2": mesh["frame_2x2"],
              "frame_textured_sharded_2x4": mesh["frame_textured_2x4"],
-             "train_step_sharded_1x2": mesh["train_1x2"]}
+             "train_step_sharded_1x2": mesh["train_1x2"],
+             "frame_default_cull": default_cull["frame"],
+             "frame_pallas_defaults": default_cull["frame_pallas_defaults"],
+             **{f"multiprocess_{part}_rank{res['rank']}": res[part]
+                for res in multiprocess["ranks"]
+                for part in ("frame_2x2", "train_1x2")}}
     replaces = {
         "block_cull": ("prismarine_core_tpu_torch/csrc/cull.cu",
                        "prismarine_core_tpu/ops/pallas_cull.py:51"),
@@ -2528,6 +2968,19 @@ def main() -> int:
          "bound_by": ktimes["bounce1"][k][4], "library_ms": None,
          "shape": "bounce-1 rays, round 1 of the closest query"}
         for k in KERNELS if k != "bvh_walk"]
+    # the default cull's block-granular dense cull beside the 256-box one
+    bc = default_cull["block_cull"]
+    rows[0].update({
+        "ms_2048_boxes": bc["2048"]["ms"],
+        "plain_ms_2048_boxes": bc["2048"]["plain_ms"],
+        "bound_ms_2048_boxes": bc["2048"]["bound_ms"],
+        "bound_by_2048_boxes": bc["2048"]["bound_by"],
+        "dense_bound_ms_2048_boxes": bc["2048"]["dense_bound_ms"],
+        "ms_256_boxes_same_query": bc["256"]["ms"],
+        "bound_ms_256_boxes_same_query": bc["256"]["bound_ms"],
+        "shape_2048_boxes": "bounce-1 rays, round 1 of the closest query "
+                            "under cull_impl='pallas' (the 2,048 block "
+                            "boxes); 256: its round-2 superblock recull"})
     # the port's own kernel (the JAX package walks the BVH in XLA): the
     # closest walk unsorted at bounce-1 rays, with the sorted and shadow
     # walks beside it
@@ -2574,6 +3027,12 @@ def main() -> int:
                for k, v in mesh.items() if k != "frame_2x2"},
             "frame_2x2": {k: v for k, v in mesh["frame_2x2"].items()
                           if k != "launches"}},
+        "default_cull": {k: v for k, v in default_cull.items()
+                         if k not in ("frame", "frame_pallas_defaults")},
+        "frame_default_cull": {k: v for k, v in default_cull["frame"].items()
+                               if k != "launches"},
+        "multiprocess": {k: v for k, v in multiprocess.items()
+                         if k != "ranks"},
         "card": smi}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
         "s")
@@ -2586,4 +3045,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker_main(Path(sys.argv[2])))
     sys.exit(main())

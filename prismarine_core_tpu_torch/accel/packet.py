@@ -1,6 +1,6 @@
 """Packet (ray tile x triangle superblock) query on the hand-written kernels.
 
-The counterpart of the ``cull_impl="pallas2"`` path of
+The counterpart of the ``cull_impl="pallas"`` and ``"pallas2"`` paths of
 ``prismarine_core_tpu.accel.packet`` (``intersector="pallas"``):
 
 1. rays sort by a coherence key (dead lanes last) and form tiles of 128;
@@ -8,20 +8,25 @@ The counterpart of the ``cull_impl="pallas2"`` path of
    gather, then padded with dead rays and one all-zero sentinel tile;
 2. the BVH's Morton-sorted triangle slots form blocks of 128 and
    superblocks of 8 blocks, with AABBs and SoA planes (``PacketSet``);
-3. ``block_cull`` gives every (tile, superblock) entry distance;
-4. candidate pairs compact tile-major (``compact_pairs``), ``pair_cull``
-   refines each to an 8-bit block mask, and the pair intersector of the
-   chosen ``kernel_form`` runs the Moller-Trumbore of every live
-   sub-block, keeping per-ray closest hits, all three forms on one
-   balanced walk: "mt" (``sb_intersect``), "mt2" (``sb_intersect_mt2``,
+3. ``block_cull`` gives every (tile, block) entry distance ("pallas", the
+   default: ``derive_pair_tables`` turns them into superblock candidates,
+   their least block distance and 8-bit block masks) or every (tile,
+   superblock) entry distance ("pallas2");
+4. candidate pairs compact tile-major (``compact_pairs``), each takes its
+   8-bit block mask from the table ("pallas") or from ``pair_cull``
+   ("pallas2", and the refreshed rounds of "rounds"), and the pair
+   intersector of the chosen ``kernel_form`` runs the Moller-Trumbore of
+   every live sub-block, keeping per-ray closest hits, all three forms on
+   one balanced walk: "mt" (``sb_intersect``), "mt2" (``sb_intersect_mt2``,
    two sub-blocks of a tile a stage, the same result bit for bit) or
    "mxu" (``sb_intersect_mxu`` on coefficient planes built per query by
    ``mxu_planes_from_planes``);
 5. "two_round" (the closest-hit default): each tile's K nearest
    superblocks first, then one re-cull of the rest under the tightened
-   per-ray caps; "rounds" (the any-hit default): every tile's candidates
-   front to back, K a round, each round's block masks refreshed under
-   the caps so far, until no tile's next candidate can beat its cap;
+   caps (``recull``); "rounds" (the any-hit default): every tile's
+   candidates front to back, K a round, each round's block masks
+   refreshed under the caps so far, until no tile's next candidate can
+   beat its cap;
    "single": every candidate pair at once.
 
 The JAX path pads pair lists to static lengths, aligns them to the TPU
@@ -43,7 +48,8 @@ import torch
 
 from prismarine_core_tpu_torch.accel.lbvh import EMPTY_BOX
 from prismarine_core_tpu_torch.ops.cull import (
-    block_cull, box_rows_from_blocks, pair_cull, sb_box_table)
+    block_cull, box_rows_from_blocks, derive_pair_tables, pair_cull,
+    sb_box_table)
 from prismarine_core_tpu_torch.ops.intersect import Hit, moller_trumbore
 from prismarine_core_tpu_torch.ops.morton import morton30
 from prismarine_core_tpu_torch.ops.sb_intersect import (
@@ -216,29 +222,83 @@ def compact_pairs(mask, cols=None):
 compact_pairs.host_syncs = 0
 
 
+def _per_ray_tile_overlap(ot, inv, tct, box_lo, box_hi, chunk: int = 32,
+                          return_tn: bool = False):
+    """Per (tile, box): does some live ray of the tile pass the box's slab
+    test under its cap (bool[nt, nbx]); with ``return_tn`` also the least
+    entry distance over those rays (f32[nt, nbx], INF_DIST where none).
+    The plain torch counterpart of the JAX package's
+    ``accel/packet.py:_per_ray_tile_overlap``, ``chunk`` tiles at a time:
+    ``block_cull``'s predicate, so the "sb" recull computes it as
+    ``block_cull(...) < INF_DIST`` on the kernel."""
+    nt, nbx = ot.shape[0], box_lo.shape[0]
+    hits, tns = [], []
+    for s in range(0, nt, chunk):
+        o_c = ot[s:s + chunk, :, None]                   # [C, TILE, 1, 3]
+        i_c = inv[s:s + chunk, :, None]
+        tc = tct[s:s + chunk, :, None]
+        t0 = (box_lo - o_c) * i_c                        # [C, TILE, nbx, 3]
+        t1 = (box_hi - o_c) * i_c
+        tn = torch.minimum(t0, t1).amax(dim=-1)
+        tf = torch.maximum(t0, t1).amin(dim=-1)
+        tn0 = torch.clamp(tn, min=0.0)
+        hit = (tf >= tn0) & (tn <= tc) & (tc > 0.0)
+        hits.append(hit.any(dim=1))
+        if return_tn:
+            tns.append(torch.where(hit, tn0, INF_DIST).amin(dim=1))
+    hit = torch.cat(hits) if hits else torch.zeros(
+        (0, nbx), dtype=torch.bool, device=ot.device)
+    return (hit, torch.cat(tns)) if return_tn else hit
+
+
+def _tables_with_cap(tn_blk, cap_tile, nsb: int):
+    """(sb_mask, mask8) re-derived from the round-1 block entry distances
+    under tightened per-tile caps (recull "tn", the JAX package's
+    ``accel/packet.py:_tables_with_cap``): a block stays while its entry
+    distance is within the tile's largest cap.  Tile-granular, so
+    conservative: the hits do not change."""
+    nt = tn_blk.shape[0]
+    cap = cap_tile[:, None, None]
+    blk = tn_blk[:, :nsb * SB].reshape(nt, nsb, SB)
+    ok = (blk <= cap) & (cap > 0.0)
+    bits = 1 << torch.arange(SB, device=tn_blk.device, dtype=torch.int32)
+    mask8 = torch.where(ok, bits, 0).sum(dim=2, dtype=torch.int32)
+    return mask8 != 0, mask8
+
+
 def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
                        any_hit: bool = False, order=None,
                        k_round: int | None = None,
                        strategy: str | None = None,
-                       cull_impl: str = "pallas2", sort_mode: str = "full",
-                       kernel_form: str = "mt", near_frac: float = 0.0,
+                       cull_impl: str = "pallas", sort_mode: str = "full",
+                       recull: str = "sb", kernel_form: str = "mt",
+                       near_frac: float = 0.0,
                        stale_round_masks: bool = False):
     """Sort + tile rays, cull, run the pairs, unsort.  Returns
     (t, slot, order): per ray in the caller's order the kernel's closest
     distance (t_cap on a miss) and slot (-1 = none), and the coherence
     sort.
 
+    ``cull_impl``: "pallas" (the default, as in the JAX package) culls
+    every (tile, block) densely and takes each pair's 8-bit block mask
+    from that table; "pallas2" culls (tile, superblock) densely and
+    refines each compacted pair's mask with ``pair_cull``.
     ``strategy``: "two_round" (default for closest-hit), "rounds"
     (default for any-hit) or "single"; scenes of at most ``k_round``
-    superblocks run "single".  ``stale_round_masks``: "rounds" refines
-    every round's block masks on the round-0 rays instead of on rays with
-    the caps so far (the same hits; more blocks tested).  ``order``
-    reuses a closest query's (perm, inv_perm) for its shadow query."""
+    superblocks run "single".  ``recull`` (two_round under "pallas"):
+    round 2's candidates from a per-ray re-cull of the superblocks with
+    the round-1 block masks ("sb"), a block re-cull under the per-ray
+    caps ("kernel"), or the round-1 block distances under per-tile caps
+    ("tn"); "pallas2" always re-culls its superblocks per ray.
+    ``stale_round_masks``: "rounds" takes every round's block masks from
+    the round-0 rays instead of rays with the caps so far (the same
+    hits; more blocks tested).  ``order`` reuses a closest query's
+    (perm, inv_perm) for its shadow query."""
     if strategy is None:
         strategy = "rounds" if any_hit else "two_round"
     check_query_knobs(cull_impl=cull_impl, sort_mode=sort_mode,
                       kernel_form=kernel_form, near_frac=near_frac,
-                      strategies=(strategy,))
+                      recull=recull, strategies=(strategy,))
 
     rays, order, r = _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap,
                                          order)
@@ -260,14 +320,29 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
     if nsb <= k_first:
         strategy = "single"
 
+    # the dense cull: per (tile, block) under "pallas", its block masks
+    # riding along; per (tile, superblock) under "pallas2"
+    blocks = cull_impl == "pallas"
     sb_rows = box_rows_from_blocks(ps.sb_lo, ps.sb_hi)
-    sbbox = sb_box_table(ps.block_lo, ps.block_hi)
-    tn_sb = block_cull(rays, sb_rows, _live_tile_bound(tct))[:, :nsb]
-    sb_mask = tn_sb < INF_DIST
+    if blocks:
+        blk_rows = box_rows_from_blocks(ps.block_lo, ps.block_hi)
+        tn_blk = block_cull(rays, blk_rows, _live_tile_bound(tct))
+        sb_mask, tn_sb, mask8 = derive_pair_tables(tn_blk, nsb)
+    else:
+        tn_sb = block_cull(rays, sb_rows, _live_tile_bound(tct))[:, :nsb]
+        sb_mask, mask8 = tn_sb < INF_DIST, None
+    # pair_cull's box table, where some round refines its pairs' masks
+    sbbox = (sb_box_table(ps.block_lo, ps.block_hi)
+             if not blocks or strategy == "rounds" else None)
 
-    def run(mask, cull_rays, prior=None, cols=None):
+    def run(mask, cull_rays, prior=None, cols=None, m8=mask8):
+        """Compact ``mask``'s pairs, take their block masks (from the
+        table ``m8``, else ``pair_cull`` on ``cull_rays``) and run them."""
         pt, psb, n_real = compact_pairs(mask, cols)
-        pm = pair_cull(pt, psb, n_real, cull_rays, sbbox)
+        if m8 is None:
+            pm = pair_cull(pt, psb, n_real, cull_rays, sbbox)
+        else:
+            pm = m8[pt.long(), psb.long()]
         return intersect(pt, psb, pm, n_real, rays, planes, prior)
 
     def caps_from(out):
@@ -306,8 +381,13 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
             # from the list length the compaction's host sync gives
             if pt.shape[0] == 0:
                 break
-            pm = pair_cull(pt, psb, n_real, rays if stale_round_masks
-                           else rays_with_caps(tct_eff), sbbox)
+            # the block masks under the caps so far (the JAX package's
+            # _block_masks is pair_cull's function), or the round-0 ones
+            if blocks and stale_round_masks:
+                pm = mask8[pt.long(), psb.long()]
+            else:
+                pm = pair_cull(pt, psb, n_real, rays if stale_round_masks
+                               else rays_with_caps(tct_eff), sbbox)
             out = intersect(pt, psb, pm, n_real, rays, planes, out)
     else:
         # round 1: the K nearest candidate superblocks of every tile
@@ -324,9 +404,19 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
         # round 2: re-cull the rest under the tightened per-ray caps
         tct2, _ = caps_from(out)
         rays2 = rays_with_caps(tct2)
-        tn2 = block_cull(rays2, sb_rows, _live_tile_bound(tct2))[:, :nsb]
-        sb_mask2 = (tn2 < INF_DIST) & sb_mask & ~executed
-        out = run(sb_mask2, rays2, prior=out)
+        if not blocks or recull == "sb":
+            # per-ray at superblock granularity (_per_ray_tile_overlap's
+            # function); "pallas" keeps the round-1 block masks
+            tn2 = block_cull(rays2, sb_rows, _live_tile_bound(tct2))[:, :nsb]
+            sb_mask2, mask8_2 = tn2 < INF_DIST, mask8
+        elif recull == "kernel":
+            sb_mask2, _, mask8_2 = derive_pair_tables(
+                block_cull(rays2, blk_rows, _live_tile_bound(tct2)), nsb)
+        else:
+            sb_mask2, mask8_2 = _tables_with_cap(tn_blk, tct2.amax(dim=1),
+                                                 nsb)
+        out = run(sb_mask2 & sb_mask & ~executed, rays2, prior=out,
+                  m8=mask8_2)
 
     return out[0][:r][order[1]], out[1][:r][order[1]], order
 

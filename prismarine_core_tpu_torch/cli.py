@@ -6,7 +6,7 @@ caller asks for another device; no card is an error, never a silent
 CPU run).  Progressive frames accumulate and the result is written as
 PNG + HDR + NPY.  Flags whose knob the port does not implement
 (``--intersector packet``, ``--sort-mode packed|group``, ``--cull-impl
-pallas|xla``, ``--reuse-order``) exit with status 2 and the
+xla``, ``--reuse-order``) exit with status 2 and the
 NotImplementedError that names the ROADMAP item porting them.
 
     python -m prismarine_core_tpu_torch.cli --scene hall --res 1280x720 \
@@ -69,9 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "'full')")
     p.add_argument("--cull-impl", default="pallas2",
                    choices=["pallas2", "pallas", "xla"],
-                   help="dense cull implementation (the port runs "
-                        "'pallas2', the two-level superblock cull + "
-                        "pair-driven block refine)")
+                   help="dense cull implementation: 'pallas2', the "
+                        "two-level superblock cull + pair-driven block "
+                        "refine, or 'pallas', the block-granular cull "
+                        "('xla' is not ported)")
     p.add_argument("--strategy", default="",
                    choices=["", "single", "two_round", "rounds"],
                    help="closest-hit execution strategy override "

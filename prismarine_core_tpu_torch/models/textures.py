@@ -142,26 +142,35 @@ def _sharded_texel_rows(mesh, arr, tid, y, x):
     ``mesh`` (a ``MeshArray``): per data row, each shard gathers the rows
     whose texture id it owns and gives zeros elsewhere, and one sum of the
     shards' results (moved to the row's device) assembles the rows; one
-    shard owns each id, so the sum is the fetch."""
-    from prismarine_core_tpu_torch.parallel.mesh import row_slices
+    shard owns each id, so the sum is the fetch.  Over processes each
+    process gathers for its own shards and the rest come over the row's
+    process group (``parallel/mesh.py:model_stack``)."""
+    from prismarine_core_tpu_torch.parallel.mesh import (
+        assemble_rows, model_stack, row_slices)
     mp = mesh.shape["model"]
     nl = arr.shape[0] // mp
-    out = []
-    for i, sl in enumerate(row_slices(mesh, tid.shape[0])):
-        if sl.start == sl.stop:
+    slices = row_slices(mesh, tid.shape[0])
+    out = {}
+    for i, sl in enumerate(slices):
+        if sl.start == sl.stop or not mesh.participates(i):
             continue
-        acc = None
+        parts = {}
         for j in range(mp):
+            if not mesh.is_local(i, j):
+                continue
             dev = mesh.devices[i][j]
             lid = tid[sl].to(dev) - j * nl
             own = (lid >= 0) & (lid < nl)
             rows = _texel_rows(arr.local(j, dev), torch.where(own, lid, 0),
                                y[sl].to(dev), x[sl].to(dev))
-            part = torch.where(own[:, None], rows, 0.0).to(
-                mesh.devices[i][0])
-            acc = part if acc is None else acc + part
-        out.append(acc.to(tid.device))
-    return torch.cat(out)
+            parts[j] = torch.where(own[:, None], rows, 0.0).to(
+                mesh.row_device(i))
+        stacked = model_stack(mesh, i, parts)
+        acc = stacked[0]
+        for j in range(1, mp):
+            acc = acc + stacked[j]
+        out[i] = acc.to(tid.device)
+    return assemble_rows(mesh, out, slices)
 
 
 def sample_bilinear(stack: TextureStack, tex_id: torch.Tensor,

@@ -245,6 +245,25 @@ def block_cull(rays, box_rows, n_live):
 block_cull.launches = 0
 
 
+def derive_pair_tables(tn_blk, nsb: int):
+    """Block entry distances f32[nt, nb_pad] (``block_cull`` over block
+    rows) -> (sb_mask, sb_tn, mask8), the counterpart of
+    ``prismarine_core_tpu/ops/pallas_cull.py:derive_pair_tables``:
+
+    * sb_mask bool[nt, nsb]: the tile lists the superblock (some block
+      passes);
+    * sb_tn f32[nt, nsb]: the least entry distance over its blocks (a
+      front-to-back lower bound, not the superblock box's own entry);
+    * mask8 i32[nt, nsb]: bit k set when some ray passes block sb*8 + k.
+    """
+    nt = tn_blk.shape[0]
+    blk = tn_blk[:, :nsb * SB].reshape(nt, nsb, SB)
+    bits = 1 << torch.arange(SB, device=tn_blk.device, dtype=torch.int32)
+    mask8 = torch.where(blk < INF_DIST, bits, 0).sum(dim=2,
+                                                     dtype=torch.int32)
+    return mask8 != 0, blk.amin(dim=2), mask8
+
+
 # ----------------------------------------------------------------- pair cull
 
 def pair_cull_plain(pair_tile, pair_sb, n_real, rays, sb_boxes,

@@ -93,6 +93,18 @@ def occluded_brute(soup, o, d, t_max, block: int = 512):
     return occ
 
 
+def intersect_aabb(o, inv_d, lo, hi, t_min: float = PZERO,
+                   t_max: float = INF_DIST):
+    """Slab test of rays against boxes (broadcasting over leading axes):
+    (entry distance max(tn, t_min), hit mask)."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    tn = torch.minimum(t0, t1).amax(dim=-1)
+    tf = torch.maximum(t0, t1).amin(dim=-1)
+    tn_min = torch.clamp(tn, min=t_min)
+    return tn_min, (tf >= tn_min) & (tn <= t_max)
+
+
 def intersect_sphere(o, d, center, radius):
     """Nearest positive t of the quadratic sphere test, or INF_DIST."""
     to = o - center

@@ -1,4 +1,4 @@
-"""30-bit 3D Morton codes, computed in int64.
+"""3D Morton codes (30-bit, and 60-bit as two halves), computed in int64.
 
 The counterpart of ``prismarine_core_tpu.ops.morton``.  Torch has no
 uint32, and an int32 code with bit 31 set (the BVH's invalid-triangle key,
@@ -26,6 +26,13 @@ def morton30(q):
     return (_part1by2_10(q[..., 0])
             | (_part1by2_10(q[..., 1]) << 1)
             | (_part1by2_10(q[..., 2]) << 2))
+
+
+def morton60(q):
+    """q: int[..., 3] with components in [0, 2^20) -> (hi, lo) int64 codes
+    of the high and low 10-bit halves; (hi, lo) compares lexicographically
+    as the interleaved 60-bit code does."""
+    return morton30((q >> 10) & 0x3FF), morton30(q & 0x3FF)
 
 
 def quantize_unit(p, bits: int = 10):

@@ -57,30 +57,73 @@ def _device(d) -> torch.device:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A 2-D grid of devices with axes ("data", "model"), driven by one
-    process; ``devices[i][j]`` is data row i, model shard j."""
+    """A 2-D grid of devices with axes ("data", "model"); ``devices[i][j]``
+    is data row i, model shard j.
+
+    One process drives the whole grid unless ``ranks`` is given: then
+    ``ranks[i][j]`` is the rank of the process holding position (i, j)
+    (``parallel/distributed.py:global_mesh``), ``rank`` this process's,
+    ``groups[i]`` the process group of row i's ranks and ``group`` that
+    of the mesh's.  A process then computes on its own positions only,
+    and takes part in the rows that hold one."""
 
     devices: tuple
+    ranks: tuple | None = None
+    rank: int = 0
+    groups: tuple | None = None
+    group: object = None
 
     @property
     def shape(self) -> dict:
         return {"data": len(self.devices), "model": len(self.devices[0])}
 
     @property
+    def multi_process(self) -> bool:
+        return self.ranks is not None and len(
+            {r for row in self.ranks for r in row}) > 1
+
+    def is_local(self, i: int, j: int) -> bool:
+        """Position (i, j) belongs to this process."""
+        return self.ranks is None or self.ranks[i][j] == self.rank
+
+    def participates(self, i: int) -> bool:
+        """Some position of data row ``i`` belongs to this process."""
+        return any(self.is_local(i, j) for j in range(self.shape["model"]))
+
+    def row_device(self, i: int) -> torch.device:
+        """Where this process traces data row ``i``: its first position in
+        the row (model shard 0's device in one process)."""
+        return next(self.devices[i][j] for j in range(self.shape["model"])
+                    if self.is_local(i, j))
+
+    def owner(self, i: int) -> int:
+        """The rank that carries row ``i``'s result and gradient (the
+        lowest of its ranks)."""
+        return self.rank if self.ranks is None else min(self.ranks[i])
+
+    @property
     def first(self) -> torch.device:
-        """The device of data row 0, model shard 0: where results land."""
-        return self.devices[0][0]
+        """Where results land: the device of data row 0, model shard 0 (in
+        a mesh over processes, this process's first position)."""
+        return next(self.devices[i][j] for i in range(self.shape["data"])
+                    for j in range(self.shape["model"])
+                    if self.is_local(i, j))
 
     def row(self, i: int) -> "Mesh":
         """Data row ``i`` as a mesh of one row."""
-        return Mesh((self.devices[i],))
+        if self.ranks is None:
+            return Mesh((self.devices[i],))
+        group = self.groups[i]
+        return Mesh((self.devices[i],), (self.ranks[i],), self.rank,
+                    (group,), group)
 
     def column(self, j: int) -> list:
-        """The distinct devices of model shard ``j``'s column, in row
-        order (where the shard's arrays are resident)."""
+        """The distinct devices of this process's positions in model shard
+        ``j``'s column, in row order (where the shard's arrays are
+        resident)."""
         out = []
-        for row in self.devices:
-            if row[j] not in out:
+        for i, row in enumerate(self.devices):
+            if self.is_local(i, j) and row[j] not in out:
                 out.append(row[j])
         return out
 
@@ -90,10 +133,11 @@ class MeshArray:
     a ``NamedSharding`` of the ("data", "model") axes.  ``spec="model"``
     (``P("model")``) splits it on its leading axis into one contiguous
     piece per model shard; ``spec=None`` (``P()``) keeps it whole.  Each
-    piece is resident once on every distinct device of the mesh positions
-    that hold it (a mesh that repeats a device holds it there once), as a
-    copy of its own, not a view of the whole.  Placing is differentiable:
-    gradients reach the tensor placed."""
+    piece is resident once on every distinct device of this process's mesh
+    positions that hold it (a mesh that repeats a device holds it there
+    once; a mesh over processes, only the pieces of this process's
+    positions), as a copy of its own, not a view of the whole.  Placing is
+    differentiable: gradients reach the tensor placed."""
 
     def __init__(self, x: torch.Tensor, mesh: Mesh, spec: str | None):
         mp = mesh.shape["model"]
@@ -109,7 +153,8 @@ class MeshArray:
             self.pieces = {(j, dev): x[j * n:(j + 1) * n].to(dev, copy=True)
                            for j in range(mp) for dev in mesh.column(j)}
         else:
-            devs = {dev for row in mesh.devices for dev in row}
+            devs = {dev for i, row in enumerate(mesh.devices)
+                    for j, dev in enumerate(row) if mesh.is_local(i, j)}
             self.pieces = {(0, dev): x.to(dev, copy=True) for dev in devs}
 
     def local(self, j: int, device) -> torch.Tensor:
@@ -118,8 +163,9 @@ class MeshArray:
         return self.pieces[(j if self.spec == "model" else 0, device)]
 
     def shard(self, j: int = 0) -> torch.Tensor:
-        """Model shard ``j``'s piece on the first device of its column (the
-        counterpart of ``addressable_shards[j].data``)."""
+        """Model shard ``j``'s piece on the first device of its column that
+        this process holds (the counterpart of
+        ``addressable_shards[j].data``)."""
         return self.local(j, self.mesh.column(j)[0])
 
     @property
@@ -132,7 +178,8 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
               devices=None) -> Mesh:
     """A ("data", "model") mesh of ``n_devices`` devices, ``model_parallel``
     of them to a row.  ``devices`` defaults to every CUDA card and raises
-    without one; it may repeat a device (``["cuda:0"] * 4``)."""
+    without one; it may repeat a device (``["cuda:0"] * 4``).  A mesh over
+    processes: ``parallel/distributed.py:global_mesh``."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -149,6 +196,56 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
     mp = model_parallel
     return Mesh(tuple(tuple(devices[i * mp:(i + 1) * mp])
                       for i in range(n // mp)))
+
+
+def model_stack(mesh: Mesh, i: int, parts: dict) -> torch.Tensor:
+    """[mp, ...]: data row ``i``'s per-shard results stacked in shard order,
+    from ``parts`` (shard j -> its result on the row's device, for this
+    process's shards of the row); the other processes' shards come over
+    the row's process group.  Differentiable."""
+    mp = len(mesh.devices[i])
+    if len(parts) == mp:
+        return torch.stack([parts[j] for j in range(mp)])
+    from prismarine_core_tpu_torch.parallel.distributed import gather_stack
+    group, owners = mesh.groups[i], mesh.ranks[i]
+    # each process sends its own shards of the row in shard order, padded
+    # to the most that any process of the row holds
+    most = max(owners.count(r) for r in group.ranks)
+    mine = [parts[j] for j in range(mp) if owners[j] == mesh.rank]
+    local = torch.stack(mine + [torch.zeros_like(mine[0])] *
+                        (most - len(mine)))
+    everyone = gather_stack(local, group)             # [k, most, ...]
+    return torch.stack([everyone[group.ranks.index(owners[j]),
+                                 owners[:j].count(owners[j])]
+                        for j in range(mp)])
+
+
+def assemble_rows(mesh: Mesh, parts: dict, slices: list) -> torch.Tensor:
+    """The per-row results ``parts`` (data row i -> the rows of its slice in
+    ``slices``) as one tensor over every row.  On one process, their
+    concatenation.  Over processes, every process gets every row, each
+    from its owner (``Mesh.owner``), and the gradient reaches only the rows
+    this process owns (``parallel/distributed.py`` says why)."""
+    if not mesh.multi_process:
+        return torch.cat([parts[i] for i in sorted(parts)])
+    from prismarine_core_tpu_torch.parallel.distributed import owned_rows
+    like = next(iter(parts.values()))
+    rows = [i for i, sl in enumerate(slices) if sl.start != sl.stop]
+    buf = torch.cat([parts[i] if i in parts else like.new_zeros(
+        (slices[i].stop - slices[i].start,) + tuple(like.shape[1:]))
+        for i in rows])
+
+    def per_row(value):
+        return torch.cat([torch.full((slices[i].stop - slices[i].start,),
+                                     value(i), device=buf.device)
+                          for i in rows])
+    owned = per_row(lambda i: mesh.owner(i) == mesh.rank)
+    everywhere = all(set(r) == set(mesh.group.ranks) for r in mesh.ranks)
+    if everywhere:                        # every process holds every row
+        return owned_rows(buf, None, None, owned)
+    return owned_rows(buf, mesh.group,
+                      per_row(lambda i: mesh.group.ranks.index(
+                          mesh.owner(i))).long(), owned)
 
 
 def row_slices(mesh: Mesh, n: int) -> list:
@@ -204,21 +301,28 @@ def brute_closest_over_ranges(scene, o, d, block: int):
         Hit, intersect_closest_brute)
     mesh = scene.mesh
     ranges = _triangle_ranges(scene.triangles, mesh.shape["model"])
-    out = []
-    for i, sl in enumerate(row_slices(mesh, o.shape[0])):
-        row_dev = mesh.devices[i][0]
-        hits = []
+    slices = row_slices(mesh, o.shape[0])
+    out = {}
+    for i, sl in enumerate(slices):
+        if sl.start == sl.stop or not mesh.participates(i):
+            continue
+        row_dev = mesh.row_device(i)
+        hits = {}
         for j, (lo, hi) in enumerate(ranges):
+            if not mesh.is_local(i, j):
+                continue
             dev = mesh.devices[i][j]
             h = intersect_closest_brute(
                 _soup_range(scene.triangles, lo, hi, dev), o[sl].to(dev),
                 d[sl].to(dev), block=block)
             tri = torch.where(h.tri >= 0, h.tri + lo, -1)
-            hits.append([x.to(row_dev) for x in (h.t, tri, h.u, h.v)])
-        stacked = [torch.stack(f) for f in zip(*hits)]
+            hits[j] = [x.to(row_dev) for x in (h.t, tri, h.u, h.v)]
+        stacked = [model_stack(mesh, i, {j: h[f] for j, h in hits.items()})
+                   for f in range(4)]
         k = torch.argmin(stacked[0], dim=0)[None]
-        out.append([torch.gather(x, 0, k)[0].to(o.device) for x in stacked])
-    t, tri, u, v = (torch.cat(f) for f in zip(*out))
+        out[i] = [torch.gather(x, 0, k)[0].to(o.device) for x in stacked]
+    t, tri, u, v = (assemble_rows(mesh, {i: r[f] for i, r in out.items()},
+                                  slices) for f in range(4))
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
@@ -228,17 +332,22 @@ def brute_occluded_over_ranges(scene, o, d, t_max, block: int):
     from prismarine_core_tpu_torch.ops.intersect import occluded_brute
     mesh = scene.mesh
     ranges = _triangle_ranges(scene.triangles, mesh.shape["model"])
-    out = []
-    for i, sl in enumerate(row_slices(mesh, o.shape[0])):
-        occ = None
+    slices = row_slices(mesh, o.shape[0])
+    out = {}
+    for i, sl in enumerate(slices):
+        if sl.start == sl.stop or not mesh.participates(i):
+            continue
+        parts = {}
         for j, (lo, hi) in enumerate(ranges):
+            if not mesh.is_local(i, j):
+                continue
             dev = mesh.devices[i][j]
-            part = occluded_brute(
+            parts[j] = occluded_brute(
                 _soup_range(scene.triangles, lo, hi, dev), o[sl].to(dev),
-                d[sl].to(dev), t_max[sl].to(dev), block=block).to(o.device)
-            occ = part if occ is None else occ | part
-        out.append(occ)
-    return torch.cat(out)
+                d[sl].to(dev), t_max[sl].to(dev),
+                block=block).to(mesh.row_device(i))
+        out[i] = model_stack(mesh, i, parts).any(dim=0).to(o.device)
+    return assemble_rows(mesh, out, slices)
 
 
 def _on_row(scene, row: Mesh):
@@ -260,7 +369,8 @@ def render_rows(mesh: Mesh, scene, camera, cfg: RenderConfig, cam_samples,
     contiguous chunk traced on the row's device (the scene's replicated
     tensors moved there, a sharded scene seeing the row as its mesh), the
     radiance gathered on the mesh's first device and reduced to the image
-    there."""
+    there.  Over processes, each process traces the rows it takes part in
+    and every process gets the whole image (``assemble_rows``)."""
     check_supported(cfg)
     first = mesh.first
     camera = to_device(camera, first)
@@ -269,18 +379,19 @@ def render_rows(mesh: Mesh, scene, camera, cfg: RenderConfig, cam_samples,
     if cfg.interlace:
         active = interlace_mask(cfg, 0, device=first).reshape(-1).repeat(
             cfg.spp)
-    parts = []
-    for i, sl in enumerate(row_slices(mesh, o.shape[0])):
-        if sl.start == sl.stop:
+    slices = row_slices(mesh, o.shape[0])
+    parts = {}
+    for i, sl in enumerate(slices):
+        if sl.start == sl.stop or not mesh.participates(i):
             continue
-        dev, row = mesh.devices[i][0], mesh.row(i)
+        dev, row = mesh.row_device(i), mesh.row(i)
         row_scene = _on_row(to_device(scene, dev), row)
         row_cfg = cfg.replace(mesh=row) if cfg.mesh is not None else cfg
         rad, _ = trace(row_scene, row_cfg, o[sl].to(dev), d[sl].to(dev),
                        bounce_samples[:, sl].to(dev),
                        None if active is None else active[sl].to(dev))
-        parts.append(rad.to(first))
-    radiance = torch.cat(parts)
+        parts[i] = rad.to(first)
+    radiance = assemble_rows(mesh, parts, slices)
     return radiance.reshape(cfg.spp, cfg.height, cfg.width, 3).mean(dim=0)
 
 
@@ -356,7 +467,8 @@ def make_train_step(mesh, cfg: RenderConfig, lr: float = 5e-2,
     detached, ``loss`` a 0-d tensor (the loss before the step).
 
     ``mesh``: a ``Mesh`` (the rays split over its data rows, gradients
-    summed over them by autograd) or one device (None, a device, or a
+    summed over them by autograd, and over processes by an all-reduce
+    where the mesh spans several) or one device (None, a device, or a
     sequence of one).  ``lr_scale``: per-param multipliers of ``lr``
     (vertex positions live on another scale than colours).
     ``normalize_grads``: divide each gradient by its RMS (+1e-8) before
@@ -393,8 +505,19 @@ def make_train_step(mesh, cfg: RenderConfig, lr: float = 5e-2,
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         loss = loss_fn(leaves, scene, camera, cam_s, bounce_s, target)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return update(params, dict(zip(leaves, grads))), loss.detach()
+        if mesh is None or not mesh.multi_process:
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        else:
+            # each process's share (the rows it owns, its shards), summed
+            from prismarine_core_tpu_torch.parallel.distributed import (
+                all_reduce)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+            grads = {k: all_reduce(torch.zeros_like(v) if g is None else g,
+                                   mesh.group)
+                     for (k, v), g in zip(leaves.items(), grads)}
+        return update(params, grads), loss.detach()
 
     # the step's two halves, for callers that time or inspect them
     step.loss_fn, step.update = loss_fn, update

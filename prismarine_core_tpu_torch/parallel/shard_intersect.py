@@ -13,12 +13,15 @@ own vertices (differentiably) and interpolates their surface fields; the
 per-ray results then min-reduce over "model" on the kernel's detached
 distance, the lowest shard winning ties.  Rays split over "data".
 
-The mesh is one process over ``torch.device``s (``parallel/mesh.py``):
-the JAX package's ``all_gather('model')`` is a stack of the shards'
-results moved to the ray shard's device, and the reduce a
-``torch.argmin`` with ``gather``, differentiable through the gather and
-through ``.to``.  No replicated triangle soup is read by the query or by
-shading: ``distribute_scene`` reduces the scene's soup to an 8-row husk.
+On a mesh that one process drives (``parallel/mesh.py``) the JAX
+package's ``all_gather('model')`` is a stack of the shards' results moved
+to the ray shard's device, and the reduce a ``torch.argmin`` with
+``gather``, differentiable through the gather and through ``.to``; where a
+row's shards lie in several processes the stack is a differentiable
+all-gather over the row's process group (``mesh.model_stack``), and each
+process computes only its own shards.  No replicated triangle soup is
+read by the query or by shading: ``distribute_scene`` reduces the scene's
+soup to an 8-row husk.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from prismarine_core_tpu_torch.accel.packet import (
     SB, PacketSet, _run_packet_pallas, build_packet_set)
 from prismarine_core_tpu_torch.ops.intersect import Hit, moller_trumbore
 from prismarine_core_tpu_torch.parallel.mesh import (
-    Mesh, MeshArray, row_slices, to_device)
+    Mesh, MeshArray, assemble_rows, model_stack, row_slices, to_device)
 from prismarine_core_tpu_torch.utils.config import INF_DIST
 from prismarine_core_tpu_torch.utils.math import cross, take_rows
 
@@ -247,34 +250,40 @@ def make_sharded_query(mesh: Mesh, any_hit: bool = False,
 
     def query(sp, o, d, t_cap, *order_in):
         out_dev = o.device
-        rows, perms = [], []
-        for i, sl in enumerate(row_slices(mesh, o.shape[0])):
-            if sl.start == sl.stop:
+        slices = row_slices(mesh, o.shape[0])
+        rows = {}
+        for i, sl in enumerate(slices):
+            if sl.start == sl.stop or not mesh.participates(i):
                 continue
-            row_dev = mesh.devices[i][0]
-            shards, row_order = [], None
+            row_dev = mesh.row_device(i)
+            shards, row_order = {}, None
             for j in range(mp):
+                if not mesh.is_local(i, j):
+                    continue
                 dev = mesh.devices[i][j]
                 order = (tuple(x[sl].to(dev) for x in order_in)
                          if use_order else None)
                 res = _local_query(sp.local(j, dev), o[sl].to(dev),
                                    d[sl].to(dev), t_cap[sl].to(dev),
                                    any_hit, order=order, query_kw=query_kw)
-                shards.append([None if x is None else x.to(row_dev)
-                               for x in res[:6]])
+                shards[j] = [None if x is None else x.to(row_dev)
+                             for x in res[:6]]
                 if row_order is None:
                     row_order = res[6]
-            keys = torch.stack([s[0] for s in shards])
+            first = next(iter(shards.values()))
+
+            def stacked(f):
+                return model_stack(mesh, i, {j: s[f] for j, s in
+                                             shards.items()})
             # on ties the lowest shard wins; misses carry t_key == t_cap
-            k = torch.argmin(keys, dim=0)
-            picked = [None if shards[0][f] is None else
-                      _pick(torch.stack([s[f] for s in shards]), k)
-                      .to(out_dev) for f in range(1, 6)]
-            rows.append(picked)
-            perms.append([x.to(out_dev) for x in row_order])
-        t, u, v, tri, surf = (
-            None if f[0] is None else torch.cat(f) for f in zip(*rows))
-        perm, inv_perm = (torch.cat(f) for f in zip(*perms))
+            k = torch.argmin(stacked(0), dim=0)
+            rows[i] = [None if first[f] is None else
+                       _pick(stacked(f), k).to(out_dev) for f in range(1, 6)]
+            rows[i] += [x.to(out_dev) for x in row_order]
+        t, u, v, tri, surf, perm, inv_perm = (
+            None if rows[min(rows)][f] is None else
+            assemble_rows(mesh, {i: r[f] for i, r in rows.items()}, slices)
+            for f in range(7))
         return t, u, v, tri, surf, perm, inv_perm
 
     return query

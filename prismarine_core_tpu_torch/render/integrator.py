@@ -51,8 +51,8 @@ def _pallas_kwargs(cfg: RenderConfig, any_hit: bool) -> dict:
     kwargs."""
     kw = dict(cull_impl=(cfg.anyhit_cull_impl or cfg.cull_impl) if any_hit
               else cfg.cull_impl,
-              sort_mode=cfg.sort_mode, kernel_form=cfg.kernel_form,
-              near_frac=cfg.near_frac,
+              sort_mode=cfg.sort_mode, recull=cfg.recull,
+              kernel_form=cfg.kernel_form, near_frac=cfg.near_frac,
               stale_round_masks=cfg.stale_round_masks)
     strat = cfg.anyhit_strategy if any_hit else cfg.closest_strategy
     k = cfg.anyhit_k if any_hit else cfg.closest_k

@@ -24,6 +24,10 @@ KERNEL_FORMS = ("mt", "mt2", "mxu")
 #: the packet query's execution strategies ("" = the query type's
 #: default: "two_round" for closest hits, "rounds" for any-hit)
 STRATEGIES = ("", "single", "two_round", "rounds")
+#: the packet query's dense culls ("xla", the JAX package's third, is not
+#: ported) and two_round's round-2 re-culls under "pallas"
+CULL_IMPLS = ("pallas", "pallas2")
+RECULLS = ("sb", "kernel", "tn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +113,8 @@ class RenderConfig:
 
 
 _KNOBS = "ROADMAP queue 1, 'Packet-path knobs off the main path'"
+_XLA_CULL = ("ROADMAP queue 1, item 12(b), 'Packet-path knobs off the main "
+             "path'")
 _INTERSECTORS = "ROADMAP queue 1, 'Other intersectors'"
 
 
@@ -132,7 +138,7 @@ def check_supported(cfg: RenderConfig) -> None:
         check_query_knobs(
             cull_impl=cfg.cull_impl, sort_mode=cfg.sort_mode,
             kernel_form=cfg.kernel_form, near_frac=cfg.near_frac,
-            anyhit_cull_impl=cfg.anyhit_cull_impl,
+            anyhit_cull_impl=cfg.anyhit_cull_impl, recull=cfg.recull,
             strategies=(cfg.closest_strategy, cfg.anyhit_strategy or
                         "rounds"))
         for flag in ("primary_tile_order", "primary_identity",
@@ -141,13 +147,20 @@ def check_supported(cfg: RenderConfig) -> None:
                 _unsupported(flag, _KNOBS)
 
 
-def check_query_knobs(cull_impl="pallas2", sort_mode="full",
+def check_query_knobs(cull_impl="pallas", sort_mode="full",
                       kernel_form="mt", near_frac=0.0,
-                      anyhit_cull_impl="", strategies=()) -> None:
+                      anyhit_cull_impl="", recull="sb",
+                      strategies=()) -> None:
     """The packet-query subset of ``check_supported``."""
-    if cull_impl != "pallas2" or anyhit_cull_impl not in ("", "pallas2"):
-        _unsupported(f"cull_impl={cull_impl!r}/anyhit_cull_impl="
-                     f"{anyhit_cull_impl!r} (only 'pallas2')", _KNOBS)
+    for knob, impl in (("cull_impl", cull_impl),
+                       ("anyhit_cull_impl", anyhit_cull_impl or cull_impl)):
+        if impl == "xla":
+            _unsupported(f"{knob}='xla' (the XLA cull stages)", _XLA_CULL)
+        if impl not in CULL_IMPLS:
+            raise ValueError(f"{knob}={impl!r} is none of {CULL_IMPLS} "
+                             "or 'xla'")
+    if recull not in RECULLS:
+        raise ValueError(f"recull={recull!r} is none of {RECULLS}")
     if sort_mode != "full":
         _unsupported(f"sort_mode={sort_mode!r}", _KNOBS)
     if kernel_form not in KERNEL_FORMS:

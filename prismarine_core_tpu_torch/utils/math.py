@@ -66,6 +66,12 @@ def orthonormal_basis(n):
     return t, b
 
 
+def luminance_length(c):
+    """The reference's ``mlength``: the plain vector length of an RGB
+    triple."""
+    return length(c)
+
+
 def mix(a, b, t):
     return a + (b - a) * t
 

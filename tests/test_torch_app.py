@@ -406,18 +406,27 @@ def test_cli_writes_the_renderers_image(tmp_path, intersector):
     (["--intersector", "packet"], "Other intersectors"),
     (["--sort-mode", "packed"], "Packet-path knobs"),
     (["--sort-mode", "group"], "Packet-path knobs"),
-    (["--cull-impl", "pallas"], "Packet-path knobs"),
-    (["--cull-impl", "xla"], "Packet-path knobs"),
+    (["--cull-impl", "pallas"], None),
+    (["--cull-impl", "xla"], "item 12(b)"),
     (["--reuse-order"], "Packet-path knobs"),
 ], ids=["packet", "packed", "group", "cull-pallas", "cull-xla",
         "reuse-order"])
-def test_cli_unported_flags_exit_nonzero(capsys, flags, item):
+def test_cli_unported_flags_exit_nonzero(capsys, tmp_path, flags, item):
+    """Unported knobs exit 2 naming their ROADMAP item; ``--cull-impl
+    pallas`` (the block-granular cull, item 12(a)) is ported and renders."""
     from prismarine_core_tpu_torch import cli
+    args = CLI_BASE + ["--device", "cpu", "--out",
+                       str(tmp_path / "r.png")] + flags
+    if item is None:
+        cli.main(args)
+        assert np.load(tmp_path / "r.npy").mean() > 1e-2
+        return
     with pytest.raises(SystemExit) as e:
-        cli.main(CLI_BASE + ["--device", "cpu"] + flags)
+        cli.main(args)
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "NotImplementedError" in err and "ROADMAP" in err and item in err
+    assert "Packet-path knobs" in err or "Other intersectors" in err
 
 
 def test_cli_without_a_card_names_it(capsys, monkeypatch):

@@ -410,7 +410,8 @@ def test_hall_query_equal_plain(cuda_device, name, strategy, request):
     t_cap = torch.where(hit.tri >= 0, INF_DIST, 0.0)
     bvh, ps, soup = scene.bvh, scene.packets, scene.triangles
     kw = dict(strategy=strategy.split("-")[0], k_round=2,
-              stale_round_masks=strategy.endswith("-stale"))
+              stale_round_masks=strategy.endswith("-stale"),
+              cull_impl="pallas2")
 
     def run():
         h = pk.intersect_closest_pallas(bvh, ps, soup, o, d, t_cap=t_cap,
@@ -421,6 +422,49 @@ def test_hall_query_equal_plain(cuda_device, name, strategy, request):
     h, occ = run()
     assert cull.block_cull.launches > launches[0]
     assert cull.pair_cull.launches > launches[1]
+    request.getfixturevalue("plain_versions")
+    h_p, occ_p = run()
+    assert torch.equal(h.tri, h_p.tri) and torch.equal(h.t, h_p.t)
+    assert torch.equal(occ, occ_p)
+    assert bool((h.tri >= 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", [
+    dict(), dict(recull="kernel"), dict(recull="tn"),
+    dict(strategy="single"), dict(strategy="rounds"),
+    dict(strategy="rounds", stale_round_masks=True)],
+    ids=["sb", "kernel", "tn", "single", "rounds", "rounds-stale"])
+def test_default_cull_query_equal_plain(cuda_device, knobs, request):
+    """The default cull ("pallas": block_cull over the block rows, the
+    masks from its table) on the small hall's bounce rays, K = 2: the same
+    hits on the kernels as on the plain versions, t bit for bit equal to
+    "pallas2"'s, the same occlusion; pair_cull only in the refreshed
+    rounds of "rounds"."""
+    from test_torch_cull_reject import _hall
+    dev = cuda_device
+    scene, o, d, hit = _hall(dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    n = torch.randn((o.shape[0], 3), generator=g).to(dev)
+    o, d = o + hit.t[:, None] * d - 1e-3 * d, n / n.norm(dim=1, keepdim=True)
+    t_cap = torch.where(hit.tri >= 0, INF_DIST, 0.0)
+    bvh, ps, soup = scene.bvh, scene.packets, scene.triangles
+
+    def run(**kw):
+        kw = dict(knobs, k_round=2, **kw)
+        h = pk.intersect_closest_pallas(bvh, ps, soup, o, d, t_cap=t_cap,
+                                        **kw)
+        return h, pk.occluded_pallas(bvh, ps, soup, o, d, 0.5 * t_cap, **kw)
+
+    launches = (cull.block_cull.launches, cull.pair_cull.launches)
+    h, occ = run()
+    assert cull.block_cull.launches > launches[0]
+    # the any-hit query takes "rounds" unless a strategy is given
+    refresh = knobs.get("strategy", "rounds") == "rounds" and not knobs.get(
+        "stale_round_masks")
+    assert (cull.pair_cull.launches > launches[1]) == refresh
+    h2, occ2 = run(cull_impl="pallas2")
+    assert torch.equal(h.t, h2.t) and torch.equal(occ, occ2)
     request.getfixturevalue("plain_versions")
     h_p, occ_p = run()
     assert torch.equal(h.tri, h_p.tri) and torch.equal(h.t, h_p.t)

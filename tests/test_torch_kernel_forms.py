@@ -185,6 +185,7 @@ def test_query_form_matches_jax(scenes, form, strategy):
     kw = dict(strategy=strategy, k_round=2)
     tj, sj, _ = jpk._run_packet_pallas(*jargs, kernel_form=form,
                                        cull_impl="pallas2", **kw)
+    kw["cull_impl"] = "pallas2"
     _, st, _ = tpk._run_packet_pallas(*targs, kernel_form=form, **kw)
     _, sm, _ = tpk._run_packet_pallas(*targs, kernel_form="mt", **kw)
     sj, st, sm = np.asarray(sj), st.numpy(), sm.numpy()

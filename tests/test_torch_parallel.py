@@ -93,8 +93,8 @@ CAM = Camera.look_at(eye=CORNELL["eye"], target=CORNELL["target"],
                      fov_y_deg=CORNELL["fov"], device=CPU)
 JCAM = JCamera.look_at(eye=CORNELL["eye"], target=CORNELL["target"],
                        fov_y_deg=CORNELL["fov"])
-#: the port's "pallas" runs the two-level cull ("pallas2") only
-PALLAS = dict(intersector="pallas", cull_impl="pallas2")
+#: "pallas" with RenderConfig's default cull, as the mirrored tests run it
+PALLAS = dict(intersector="pallas")
 
 
 def _mesh(mp):
@@ -311,8 +311,7 @@ def tproc_soup(n_tris, capacity, seed):
 def _pallas_sharded_setup(mp, seed):
     mesh = _mesh(mp)
     cfg = RenderConfig(width=16, height=16, spp=1, max_bounces=2,
-                       intersector="pallas_sharded", mesh=mesh,
-                       cull_impl="pallas2")
+                       intersector="pallas_sharded", mesh=mesh)
     scene = tsi.distribute_scene(make_cornell_scene(capacity=64, device=CPU),
                                  mesh, shard_soup=False)
     cam_s, bounce_s = _samples(cfg, seed)
@@ -496,7 +495,8 @@ def test_sharded_production_knobs_match_single_device(cornell_frame):
     """The sharded path forwards the single-device knobs (K,
     strategies, stale masks) to each shard's query."""
     _, scene, _, _, _ = cornell_frame
-    knobs = dict(PALLAS, pairs_per_step=8, closest_k=16, cull_window=2048,
+    knobs = dict(PALLAS, cull_impl="pallas2", pairs_per_step=8, closest_k=16,
+                 cull_window=2048,
                  cull_pps=16, stale_round_masks=True,
                  anyhit_strategy="single")
     cfg = RenderConfig(width=32, height=32, spp=1, max_bounces=2, **knobs)

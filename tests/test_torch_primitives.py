@@ -1,5 +1,6 @@
-"""Port primitives against the JAX package: Morton codes, sampling
-formulas, Moller-Trumbore, the sphere test and the brute intersectors.
+"""Port primitives against the JAX package: Morton codes (30- and 60-bit),
+sampling formulas, Moller-Trumbore, the sphere and slab tests, the brute
+intersectors and the RGB length.
 
 Integers must be equal.  Floats are held to 1 ulp at the scale of the
 computation: XLA on the CPU contracts a multiply followed by an add into
@@ -158,3 +159,67 @@ def test_brute_intersectors_match_jax(n_tris, r, block):
                                          block=block))
     occ_t = ti.occluded_brute(ts_soup, *T(o, d, t_max), block=block).numpy()
     assert (occ_j != occ_t).sum() <= max(1, r // 1000)
+
+
+def test_aabb_slab():
+    """tests/test_intersect.py:101 on the port: a ray into a box enters at
+    t = 4; a ray from inside hits."""
+    o = torch.tensor([[0.0, 0.0, 5.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    inv = tm.safe_rcp(d)
+    lo = torch.tensor([[-1.0, -1.0, -1.0]])
+    hi = torch.tensor([[1.0, 1.0, 1.0]])
+    tn, hitm = ti.intersect_aabb(o, inv, lo, hi)
+    assert bool(hitm[0])
+    np.testing.assert_allclose(float(tn[0]), 4.0, rtol=1e-5)
+    tn2, h2 = ti.intersect_aabb(torch.zeros((1, 3)), inv, lo, hi)
+    assert bool(h2[0])
+
+
+def test_intersect_aabb_equals_jax():
+    """Random rays against random boxes (broadcast [R, 1] x [1, B]), with
+    the default and explicit limits: entry distance and mask bit for bit."""
+    rng = np.random.default_rng(11)
+    o = rng.uniform(-4, 4, (256, 1, 3)).astype(np.float32)
+    d = rng.normal(size=(256, 1, 3)).astype(np.float32)
+    d[:8, :, 0] = 0.0                        # axis-parallel rays
+    inv = 1.0 / np.where(np.abs(d) < 1e-12, 1e-12, d).astype(np.float32)
+    c = rng.uniform(-3, 3, (1, 64, 3)).astype(np.float32)
+    h = rng.uniform(0.05, 1.5, (1, 64, 3)).astype(np.float32)
+    lo, hi = c - h, c + h
+    for kw in ({}, dict(t_min=0.0, t_max=2.5)):
+        tn, hit = ti.intersect_aabb(*(torch.tensor(x) for x in
+                                      (o, inv, lo, hi)), **kw)
+        tn_j, hit_j = ji.intersect_aabb(*(jnp.asarray(x) for x in
+                                          (o, inv, lo, hi)), **kw)
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(tn_j))
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(hit_j))
+        assert 0 < int(hit.sum()) < hit.numel()
+
+
+def test_morton60_equals_jax():
+    rng = np.random.default_rng(12)
+    q = rng.integers(0, 1 << 20, (5000, 3))
+    hi, lo = tmo.morton60(torch.as_tensor(q))
+    hi_j, lo_j = jmo.morton60(jnp.asarray(q, jnp.uint32))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(hi_j).astype(
+        np.int64))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(lo_j).astype(
+        np.int64))
+    # (hi, lo) orders as the interleaved 60-bit code
+    code = (hi << 30) | lo
+    bits = np.zeros(5000, dtype=object)
+    for b in range(20):
+        for a in range(3):
+            bits = bits | (((q[:, a] >> b) & 1).astype(object) << (3 * b + a))
+    np.testing.assert_array_equal(np.argsort(code.numpy(), kind="stable"),
+                                  np.argsort(bits.astype(np.int64),
+                                             kind="stable"))
+
+
+def test_luminance_length_equals_jax():
+    rng = np.random.default_rng(13)
+    c = rng.uniform(0, 4, (4096, 3)).astype(np.float32)
+    got = tm.luminance_length(torch.tensor(c)).numpy()
+    ref = np.asarray(jm.luminance_length(jnp.asarray(c)))
+    assert_ulp(got, ref, np.sqrt((c.astype(np.float64) ** 2).sum(-1)))

@@ -86,7 +86,8 @@ def test_closest_query_matches_jax(scenes, kw):
         cull_impl="pallas2", **kw)
     ht = tpk.intersect_closest_pallas(
         ts.bvh, ts.packets, ts.triangles, torch.tensor(np.asarray(o)),
-        torch.tensor(np.asarray(d)), t_cap=torch.tensor(t_cap), **kw)
+        torch.tensor(np.asarray(d)), t_cap=torch.tensor(t_cap),
+        cull_impl="pallas2", **kw)
     tri_j, tri_t = np.asarray(hj.tri), ht.tri.numpy()
     assert (tri_t[~alive] == -1).all()
     assert (tri_j >= 0).sum() > r // 10
@@ -108,7 +109,8 @@ def test_occluded_query_matches_jax(scenes, kw):
         cull_impl="pallas2", **kw))
     occ_t = tpk.occluded_pallas(
         ts.bvh, ts.packets, ts.triangles, torch.tensor(np.asarray(o)),
-        torch.tensor(np.asarray(d)), torch.tensor(t_max), **kw).numpy()
+        torch.tensor(np.asarray(d)), torch.tensor(t_max), cull_impl="pallas2",
+        **kw).numpy()
     assert not occ_t[t_max == 0].any()
     assert occ_j.sum() > r // 10
     _agree("occluded", occ_t, occ_j)
@@ -127,7 +129,7 @@ def test_order_reuse_and_unported_knobs(scenes):
     b = tpk.occluded_pallas(ts.bvh, ts.packets, ts.triangles, o, d, t_max,
                             strategy="single")
     assert torch.equal(a, b)
-    for bad in (dict(near_frac=0.5), dict(cull_impl="pallas"),
+    for bad in (dict(near_frac=0.5), dict(cull_impl="xla"),
                 dict(sort_mode="packed")):
         with pytest.raises(NotImplementedError):
             tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles,

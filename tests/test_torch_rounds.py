@@ -57,10 +57,11 @@ def _port_query(hall, any_hit, **kw):
     before = tpk.compact_pairs.host_syncs
     if any_hit:
         out = tpk.occluded_pallas(*args, torch.tensor(t_max), k_round=K,
-                                  **kw)
+                                  cull_impl="pallas2", **kw)
     else:
         out = tpk.intersect_closest_pallas(*args, t_cap=torch.tensor(t_cap),
-                                           k_round=K, **kw)
+                                           k_round=K, cull_impl="pallas2",
+                                           **kw)
     return out, tpk.compact_pairs.host_syncs - before
 
 
