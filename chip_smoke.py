@@ -8,8 +8,9 @@ boundary (edge-sampled) gradients, the application layer (the
 ingest, bench.py's teapot and independent-sampling frames), the
 device mesh ("pallas_sharded", sharded textures, the sharded train step,
 on meshes that repeat the card), the reference's default packet cull
-(cull_impl="pallas") and the mesh over processes (two worker processes
-sharing the card) on one NVIDIA GPU.
+(cull_impl="pallas"), the mesh over processes (two worker processes
+sharing the card), and the last packet knobs and the "packet" intersector
+on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -198,7 +199,34 @@ Phases (any failure exits non-zero):
                 frames, the means within 1e-6 and each equal to a one-process
                 mesh's; phase 16d's 1x2 "mxu" step with its shards in the two
                 processes, its loss equal to 16d's; each process's launches,
-                device busy and wall.
+                device busy and wall;
+ 18. knobs    — the bench frame under the last packet knobs and the
+                "packet" intersector (phase_knobs): every block_cull,
+                pair_cull and sb_intersect input of the recorded steps
+                (bounce 1 under each knob, bounce 0 under "identity",
+                bounce 1 on a reused order, "packet"'s two queries) equal
+                to the plain versions; (a) cull_impl="xla": the frame
+                bit-identical to phase 4's, launches 12 / 12 / 12, the
+                bounce-1 shadow query under "rounds" occluding as under
+                "single"; (b) sort_mode "packed" and "group" and (c)
+                near_frac=0.4: the bounce-1 closest t bit for bit equal to
+                phase 4's (tie lanes counted), pairs and live sub-blocks per
+                round, each frame through the image gate with its launches
+                and device busy, the three sorts alone at 921,600 rays in
+                alternating turns; (d) primary_identity,
+                reuse_bounce_order and primary_tile_order frames (the tile
+                order's against a scanline frame of the same samples moved
+                to their pixels), their host syncs and device busy beside
+                phase 4's, the bounce-0 step with and without its sort;
+                (e) intersector="packet": the frame (8 sb_intersect
+                launches, no cull kernel), the bounce-1 closest t equal to
+                "pallas2" "single" at INF_DIST caps (tie lanes counted),
+                occlusion identical, the interval cull's time and peak
+                memory, pairs and live sub-blocks against "pallas2", the
+                sb_intersect time on the packet pairs; (f) the CLI with
+                --intersector packet and with --cull-impl xla --sort-mode
+                group --reuse-order at 320x180, two subprocesses at once,
+                each exiting 0 with its PNG.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
@@ -206,7 +234,7 @@ JSON (the five ported kernels and bvh_walk, with their launches on each
 path, the sharded, default-cull and per-process ones included, and
 block_cull's 2,048-box time and bound beside its 256-box ones; and every
 frame's, the step's, the edge path's, the application phase's, the mesh
-phase's, the default cull's and the processes' results),
+phase's, the default cull's, the processes' and the knobs' results),
 nvidia-smi's line, and ``{"ok": true, "device": {...}}``.  The script
 exits 0 only when every phase passes.  Nothing falls back to the CPU.
 """
@@ -303,6 +331,16 @@ DEFAULT_CULL_LAUNCHES = {"block_cull": 3 * BOUNCES,
 #: them the one card), and each worker's time limit in seconds
 MP_PROCESSES, MP_POSITIONS = 2, 2
 MP_TIMEOUT = 400
+#: phase 18: each kernel's launches on the bench frame under every knob
+#: of the "pallas2" query (as phase 4's: two of each per closest query and
+#: one per shadow query over 4 bounces), and under intersector="packet"
+#: (one sb_intersect per query, no cull kernel)
+KNOB_LAUNCHES = {k: MAX_LAUNCHES for k in MT_PATH}
+PACKET_LAUNCHES = {"sb_intersect": 2 * BOUNCES}
+#: phase 18's frames, by their key in its results and launches_by_path
+KNOB_FRAMES = ("frame_xla", "frame_sort_packed", "frame_sort_group",
+               "frame_near_frac", "frame_primary_identity",
+               "frame_reuse_order", "frame_tile_order", "frame_packet")
 #: the profiler's own range around each scheduled step (a span, no op)
 STEP_RANGE = "ProfilerStep"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
@@ -2654,6 +2692,270 @@ def phase_default_cull(scene, cam, cfg, dev, img):
     return out
 
 
+def query_work(fn):
+    """``fn()`` with its sb_intersect calls recorded: (its result, the
+    (pairs, live sub-blocks) of each call)."""
+    from prismarine_core_tpu_torch.ops import sb_intersect as si
+    with recorded_calls(("sb_intersect",)) as calls:
+        res = fn()
+    return res, [(int(a[3]), int(si.live_counts(a[2], a[3]).sum()))
+                 for a in calls["sb_intersect"]]
+
+
+def knob_frame(scene, cam, cfg, dev, img, tag, launches=None, **kw):
+    """One frame of a phase 18 path through phase_frame's gates and
+    measurements (``kw``) with each kernel's launches exactly
+    ``launches`` (KNOB_LAUNCHES by default), and the image gate against
+    phase 4's frame ``img``; returns (image, result, samples)."""
+    img_k, res, smp = phase_frame(scene, cam, cfg, dev, tag=tag, **kw)
+    want = KNOB_LAUNCHES if launches is None else launches
+    require(all(res["launches"][k] == want.get(k, 0) for k in KERNELS),
+            f"{tag}: launches {res['launches']}")
+    res["gate"] = image_gate(img_k, img, tag, "pallas2 frame (phase 4)")
+    return img_k, res, smp
+
+
+def check_step(scene, cfg, carry, samples, tag, seen, errs,
+               fixed_order=None):
+    """Phase 18's kernel inputs: every block_cull, pair_cull and
+    sb_intersect call of one bounce step of ``cfg`` at ``carry`` against
+    the plain versions exactly (check_recorded)."""
+    from prismarine_core_tpu_torch.render.integrator import make_bounce_step
+    with recorded_calls() as calls:
+        make_bounce_step(scene, cfg, fixed_order=fixed_order)(carry, samples)
+    e, n_checked, plain_ms = check_recorded(calls, tag, seen)
+    for k, v in e.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    log(f"[knobs] {tag}: calls { {k: len(v) for k, v in calls.items()} }; "
+        f"{n_checked} new kernel inputs == plain exactly ({plain_ms:.0f} ms "
+        "of plain versions)")
+
+
+def phase_knobs(scene, cam, cfg, dev, img, frame):
+    """Phase 18: the packet path's last knobs and the "packet" intersector
+    at the bench's scene and size (``img`` and ``frame`` phase 4's).  Each
+    sub-phase holds its bounce-step kernel inputs against the plain
+    versions exactly (check_step).  (a) cull_impl="xla": the frame
+    bit-identical to phase 4's, launches 12 / 12 / 12, and the bounce-1
+    shadow query under "xla" + "rounds" occluding as "single"; (b)
+    sort_mode "packed" and "group" and (c) near_frac 0.4: the bounce-1
+    closest t bit for bit equal to phase 4's (tie lanes counted), pairs
+    and live sub-blocks per round, the frame through the image gate and
+    its device busy, and the three sorts alone at the bounce-1 rays in
+    alternating turns; (d) primary_identity, reuse_bounce_order and
+    primary_tile_order: their frames (the tile order's against a scanline
+    frame of the same samples moved to their pixels), host syncs and
+    device busy beside phase 4's, the bounce-0 step with and without the
+    sort in alternating turns; (e) intersector="packet": the frame (8
+    sb_intersect launches and no cull kernel), the bounce-1 closest t
+    equal to "pallas" "single" at INF_DIST caps (tie lanes counted),
+    occlusion identical, the interval cull's time and peak memory, pairs
+    and live sub-blocks against "pallas2", sb_intersect's time on the
+    packet pairs; (f) the CLI with --intersector packet and with
+    --cull-impl xla --sort-mode group --reuse-order, two subprocesses at
+    once."""
+    import tempfile
+    import torch
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.models.camera import tile_pixel_inv_perm
+    from prismarine_core_tpu_torch.ops import sb_intersect as si
+    from prismarine_core_tpu_torch.render.integrator import (
+        _pallas_kwargs, initial_carry, make_bounce_step, render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    t_phase = time.perf_counter()
+    out, seen, errs = {}, {k: [] for k in MT_PATH}, {}
+    o, d, _, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
+    queries = step_queries(scene, cfg, carry1, bounce_s[1])
+    (c_args, c_kw), (s_args, s_kw) = queries["closest"], queries["shadow"]
+    inputs = pk._detached(*c_args[:2], c_args[3], c_args[4], c_kw["t_cap"])
+    lo, hi, _, co, cd, ct = inputs
+
+    def closest(c):
+        return pk._run_packet_pallas(*inputs, **_pallas_kwargs(c, False))
+    (t_ref, s_ref, _), work_ref = query_work(lambda: closest(cfg))
+    hits = int((s_ref >= 0).sum())
+    out["pallas2_bounce1"] = dict(work=work_ref, hits=hits)
+    log(f"[knobs] phase 4's bounce-1 closest query: (pairs, live "
+        f"sub-blocks) by round {work_ref}, {hits} hits of {co.shape[0]}")
+
+    def same_t(c, tag):
+        (t, s, _), work = query_work(lambda: closest(c))
+        require(torch.equal(t, t_ref), f"{tag}: bounce-1 closest t differs "
+                "from phase 4's")
+        ties = int((s != s_ref).sum())
+        require(ties <= 1e-4 * hits, f"{tag}: {ties} tie lanes")
+        log(f"[knobs] {tag} bounce-1 closest: t == phase 4's on all "
+            f"{t.numel()} lanes, {ties} tie lanes; (pairs, live sub-blocks) "
+            f"by round {work}")
+        return dict(ties=ties, work=work)
+
+    # (a) cull_impl="xla"
+    cfg_x = cfg.replace(cull_impl="xla")
+    check_step(scene, cfg_x, carry1, bounce_s[1], "xla bounce1", seen, errs)
+    out["xla"] = dict(bounce1=same_t(cfg_x, "xla"))
+    occ1 = pk.occluded_pallas(*s_args, **dict(s_kw, **_pallas_kwargs(
+        cfg_x.replace(anyhit_strategy="single"), True)))
+    occr = pk.occluded_pallas(*s_args, **dict(s_kw, **_pallas_kwargs(
+        cfg_x.replace(anyhit_strategy="rounds"), True)))
+    require(torch.equal(occ1, occr), "xla: rounds occlusion != single")
+    img_x, out["frame_xla"], _ = knob_frame(
+        scene, cam, cfg_x, dev, img, "frame xla")
+    require(torch.equal(img_x, img), "frame xla != phase 4's frame")
+    log(f"[knobs] xla: shadow rounds == single ({int(occ1.sum())} occluded);"
+        " frame bit-identical to phase 4's")
+
+    # (b) sort modes and (c) near_frac
+    sort_ms, sort_turns = alternating_ms(
+        {m: (lambda m=m: pk._coherence_perm(lo, hi, co, cd, ct, m))
+         for m in ("full", "packed", "group")}, turns=5, reps=5)
+    out["sort_ms"], out["sort_turns_ms"] = sort_ms, sort_turns
+    log(f"[knobs] the coherence sort alone at {co.shape[0]} bounce-1 rays "
+        f"(medians of 5 alternating turns of 5, CUDA events): "
+        f"{ {k: round(v, 4) for k, v in sort_ms.items()} }")
+    for tag, knob in (("sort packed", dict(sort_mode="packed")),
+                      ("sort group", dict(sort_mode="group")),
+                      ("near_frac", dict(near_frac=0.4))):
+        c = cfg.replace(**knob)
+        check_step(scene, c, carry1, bounce_s[1], f"{tag} bounce1", seen,
+                   errs)
+        key = tag.replace(" ", "_")
+        out[key] = dict(bounce1=same_t(c, tag))
+        _, out[f"frame_{key}"], _ = knob_frame(
+            scene, cam, c, dev, img, f"frame {tag}")
+
+    # (d) the bounce-0 flags
+    carry0 = initial_carry(o, d)
+    check_step(scene, cfg, carry0, bounce_s[0], "identity bounce0", seen,
+               errs, fixed_order="identity")
+    order1 = pk._coherence_perm(lo, hi, carry1[0], carry1[1],
+                                torch.ones_like(ct), cfg.sort_mode)
+    check_step(scene, cfg, carry1, bounce_s[1], "reuse bounce1", seen, errs,
+               fixed_order=order1)
+    step0 = {"sorted": make_bounce_step(scene, cfg),
+             "identity": make_bounce_step(scene, cfg, fixed_order="identity")}
+    b0_ms, b0_turns = alternating_ms(
+        {k: (lambda s=s: s(carry0, bounce_s[0])) for k, s in step0.items()},
+        turns=5, reps=3)
+    out["bounce0_step_ms"], out["bounce0_step_turns_ms"] = b0_ms, b0_turns
+    log(f"[knobs] bounce-0 step (medians of 5 alternating turns of 3): "
+        f"{ {k: round(v, 4) for k, v in b0_ms.items()} }")
+    for tag, knob in (("primary identity", dict(primary_identity=True)),
+                      ("reuse order", dict(reuse_bounce_order=True))):
+        _, out[f"frame_{tag.replace(' ', '_')}"], _ = knob_frame(
+            scene, cam, cfg.replace(**knob), dev, img, f"frame {tag}")
+    cfg_t = cfg.replace(primary_tile_order=True)
+    img_t, res_t, (cs, bs) = phase_frame(scene, cam, cfg_t, dev,
+                                         tag="frame tile order")
+    require(all(res_t["launches"][k] == KNOB_LAUNCHES.get(k, 0)
+                for k in KERNELS), f"frame tile order: launches "
+            f"{res_t['launches']}")
+    inv = tile_pixel_inv_perm(cfg_t, dev)
+    scan = render_with_samples(scene, cam, cfg, cs[inv], bs[:, inv])
+    res_t["gate"] = image_gate(img_t, scan, "frame tile order",
+                               "scanline frame of the same samples")
+    out["frame_tile_order"] = res_t
+    for k in ("frame_primary_identity", "frame_reuse_order",
+              "frame_tile_order"):
+        r = out[k]
+        log(f"[knobs] {k}: host syncs {r['host_syncs_per_frame']} (phase 4 "
+            f"{frame['host_syncs_per_frame']}), device busy "
+            f"{r['profile']['busy_ms']:.3f} ms (phase 4 "
+            f"{frame['profile']['busy_ms']:.3f})")
+
+    # (e) intersector="packet"
+    cfg_p = cfg.replace(intersector="packet")
+    inf = torch.full_like(ct, INF_DIST)
+    args_inf = (lo, hi, inputs[2], co, cd, inf)
+    with recorded_calls(("sb_intersect",)) as calls:
+        make_bounce_step(scene, cfg_p)(carry1, bounce_s[1])
+    require(len(calls["sb_intersect"]) == 2, "packet bounce-1 step: "
+            f"{len(calls['sb_intersect'])} sb_intersect calls")
+    e, n_checked, plain_ms = check_recorded(calls, "packet bounce1", seen)
+    for k, v in e.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    log(f"[knobs] packet bounce1: {n_checked} sb_intersect inputs == plain "
+        f"exactly ({plain_ms:.0f} ms of plain versions)")
+    (t_p, s_p), work_p = query_work(lambda: pk._run_packet(*args_inf))
+    (t_s, s_s, _), work_d = query_work(lambda: pk._run_packet_pallas(
+        *args_inf, strategy="single", cull_impl="pallas"))
+    (t_2, _, _), work_s = query_work(lambda: pk._run_packet_pallas(
+        *args_inf, strategy="single", cull_impl="pallas2"))
+    require(torch.equal(t_p, t_s), "packet: bounce-1 closest t differs "
+            "from pallas single")
+    require(torch.equal(t_p, t_2), "packet: bounce-1 closest t differs "
+            "from pallas2 single")
+    hits_p = int((s_s >= 0).sum())
+    ties = int((s_p != s_s).sum())
+    require(ties <= 1e-4 * hits_p, f"packet: {ties} tie lanes")
+    occ_p = pk.occluded_packet(*s_args)
+    occ_s = pk.occluded_pallas(*s_args, **dict(s_kw, **_pallas_kwargs(
+        cfg.replace(anyhit_strategy="single"), True)))
+    require(torch.equal(occ_p, occ_s), "packet: occlusion differs")
+    rays, _, _ = pk._sorted_rays_matrix(*args_inf[:2], co, cd, inf)
+    ps = scene.packets
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pk.tile_block_overlap(rays, ps.block_lo, ps.block_hi)
+    torch.cuda.synchronize()
+    cull_peak = torch.cuda.max_memory_allocated(dev) - base
+    cull_ms = cuda_ms(lambda: pk.tile_block_overlap(
+        rays, ps.block_lo, ps.block_hi), 3)
+    sb_args = calls["sb_intersect"][0]
+    sb_ms = cuda_ms(lambda: si.sb_intersect(*sb_args), 3)
+    out["packet"] = dict(ties=ties, hits=hits_p, work=work_p,
+                         work_pallas_single=work_d,
+                         work_pallas2_single=work_s,
+                         occluded=int(occ_p.sum()), cull_ms=cull_ms,
+                         cull_peak_bytes=cull_peak,
+                         sb_intersect_ms=sb_ms)
+    log(f"[knobs] packet bounce-1 closest at INF_DIST caps: t == pallas "
+        f"single's and pallas2 single's on all {t_p.numel()} lanes, {ties} "
+        f"tie lanes (slot != pallas single's) of {hits_p} hits; (pairs, live "
+        f"sub-blocks) packet {work_p} vs pallas single {work_d} vs pallas2 "
+        f"single {work_s} vs phase 4's two_round (live caps) {work_ref}; "
+        f"occlusion identical ({int(occ_p.sum())}); interval cull {cull_ms:.4f} ms, "
+        f"its peak {cull_peak / 2**20:.1f} MiB over the live tensors; "
+        f"sb_intersect on the packet pairs {sb_ms:.4f} ms")
+    _, out["frame_packet"], _ = knob_frame(
+        scene, cam, cfg_p, dev, img, "frame packet",
+        kernels=("sb_intersect",),
+        max_launches=PACKET_LAUNCHES["sb_intersect"],
+        launches=PACKET_LAUNCHES)
+
+    # (f) the CLI, two subprocesses at once
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        t0 = time.perf_counter()
+        for name, flags in (("packet", ["--intersector", "packet"]),
+                            ("xla_group_reuse", ["--cull-impl", "xla",
+                                                 "--sort-mode", "group",
+                                                 "--reuse-order"])):
+            png = Path(tmp) / f"{name}.png"
+            runs[name] = (png, subprocess.Popen(
+                [sys.executable, "-m", "prismarine_core_tpu_torch.cli",
+                 "--scene", "hall", "--res", "320x180", "--frames", "2",
+                 "--out", str(png), *flags], cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        cli = {}
+        for name, (png, proc) in runs.items():
+            try:
+                _, err = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            require(proc.returncode == 0, f"CLI {name} exit "
+                    f"{proc.returncode}: {err[-2000:]}")
+            require(png_size(png) == (320, 180), f"CLI {name} PNG size "
+                    f"{png_size(png)}")
+            cli[name] = dict(wall_s=time.perf_counter() - t0,
+                             stderr=err.strip().splitlines()[-1:])
+        out["cli"] = cli
+        log(f"[knobs] CLI subprocesses exit 0 with a 320x180 PNG: {cli}")
+    out["max_abs_err"] = errs
+    log(f"[knobs] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def cases_module():
     """tests/torch_multihost_cases.py of this checkout, by its path."""
     import importlib.util
@@ -2905,10 +3207,12 @@ def main() -> int:
     default_cull = phase_default_cull(scene, cam, cfg, dev, img)
     multiprocess = phase_multiprocess(dev, img_2x2,
                                       mesh["train_1x2"]["loss"], img, samples)
+    knobs = phase_knobs(scene, cam, cfg, dev, img, frame)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0),
                         app["rounds"]["max_abs_err"].get(k, 0.0),
                         default_cull["max_abs_err"].get(k, 0.0),
+                        knobs["max_abs_err"].get(k, 0.0),
                         *(mesh[f"query_1x{mp}"]["max_abs_err"].get(k, 0.0)
                           for mp in QUERY_MESHES))
                  for k, v in step_errs.items()}
@@ -2939,6 +3243,7 @@ def main() -> int:
              "train_step_sharded_1x2": mesh["train_1x2"],
              "frame_default_cull": default_cull["frame"],
              "frame_pallas_defaults": default_cull["frame_pallas_defaults"],
+             **{k: knobs[k] for k in KNOB_FRAMES},
              **{f"multiprocess_{part}_rank{res['rank']}": res[part]
                 for res in multiprocess["ranks"]
                 for part in ("frame_2x2", "train_1x2")}}
@@ -3033,6 +3338,8 @@ def main() -> int:
                                if k != "launches"},
         "multiprocess": {k: v for k, v in multiprocess.items()
                          if k != "ranks"},
+        "knobs": {k: ({f: x for f, x in v.items() if f != "launches"}
+                      if k in KNOB_FRAMES else v) for k, v in knobs.items()},
         "card": smi}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
         "s")

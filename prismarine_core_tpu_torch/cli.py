@@ -4,10 +4,9 @@ The counterpart of ``prismarine_core_tpu.cli``: every flag, default and
 scene/camera choice of it, plus ``--device`` (the CUDA card unless the
 caller asks for another device; no card is an error, never a silent
 CPU run).  Progressive frames accumulate and the result is written as
-PNG + HDR + NPY.  Flags whose knob the port does not implement
-(``--intersector packet``, ``--sort-mode packed|group``, ``--cull-impl
-xla``, ``--reuse-order``) exit with status 2 and the
-NotImplementedError that names the ROADMAP item porting them.
+PNG + HDR + NPY.  Every flag value of the JAX CLI renders, including
+``--intersector packet``, ``--sort-mode packed|group``, ``--cull-impl
+xla`` and ``--reuse-order``.
 
     python -m prismarine_core_tpu_torch.cli --scene hall --res 1280x720 \
         --depth 4 --frames 8 --out render.png
@@ -194,7 +193,7 @@ def main(argv=None) -> int:
     try:
         check_supported(cfg)
         dev = resolve_device(None if args.device == "cuda" else args.device)
-    except (NotImplementedError, RuntimeError) as e:
+    except (ValueError, RuntimeError) as e:
         parser.exit(2, f"{parser.prog}: {type(e).__name__}: {e}\n")
     scene, camera = make_scene_camera(args, dev)
 

@@ -4,14 +4,16 @@ The counterpart of ``prismarine_core_tpu.models.camera``: rays come from a
 look-at frame in closed form, one per (spp, row, column) in scanline
 order, with per-ray jitter inside the pixel; ``cfg.camera_360`` maps the
 frame to an equirectangular panorama and ``cfg.dof`` moves each origin
-onto a thin lens aimed at the focal distance.  The 16x8 tile lane order
-(``primary_tile_order``) is a ROADMAP queue 1 item (``RenderConfig``
-checks raise for it).
+onto a thin lens aimed at the focal distance.  With an active
+``primary_tile_order`` (``tile_order_active``) lane p takes pixel
+``tile_pixel_perm[p]``: each 128-lane tile of the packet query is a
+16x8-pixel rect instead of a 128x1 scanline strip.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -49,12 +51,54 @@ class Camera:
         return fwd, right, cup
 
 
+def tile_order_active(cfg: RenderConfig) -> bool:
+    """Whether ``cfg.primary_tile_order`` applies: under "pallas", on a
+    frame of whole 16x8 tiles."""
+    return (cfg.primary_tile_order and cfg.intersector == "pallas"
+            and cfg.width % 16 == 0 and cfg.height % 8 == 0)
+
+
+def _tile_pixel_perm_np(w: int, h: int):
+    """(perm, inv) i64[H*W] numpy constants: lane -> pixel and pixel ->
+    lane of the 16x8-pixel-tile lane order (tiles row-major, pixels
+    row-major within a tile)."""
+    tw, th = 16, 8
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    key = (((yy // th) * (w // tw) + xx // tw) * (th * tw)
+           + (yy % th) * tw + (xx % tw))
+    perm = np.empty(h * w, np.int64)
+    perm[key.reshape(-1)] = np.arange(h * w)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(h * w)
+    return perm, inv
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_pixel_perms(w: int, h: int, device: torch.device):
+    """``_tile_pixel_perm_np`` on ``device``, moved there once."""
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in _tile_pixel_perm_np(w, h))
+
+
+def tile_pixel_perm(cfg: RenderConfig, device) -> torch.Tensor:
+    """Lane -> pixel map of the 16x8-pixel-tile lane order, i64[H*W] on
+    ``device``."""
+    return _tile_pixel_perms(cfg.width, cfg.height, torch.device(device))[0]
+
+
+def tile_pixel_inv_perm(cfg: RenderConfig, device) -> torch.Tensor:
+    """Pixel -> lane, the inverse of ``tile_pixel_perm``: the one radiance
+    unpermute of a frame."""
+    return _tile_pixel_perms(cfg.width, cfg.height, torch.device(device))[1]
+
+
 def generate_rays(camera: Camera, cfg: RenderConfig,
                   cam_samples: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Primary rays (origins, dirs) f32[R,3], R = spp*H*W laid out as
-    [spp, H, W] row-major; cam_samples f32[R,4] (jitter xy in 0:2, the
-    lens sample in 2:4)."""
+    [spp, H, W] row-major (with an active ``primary_tile_order``, lane p of
+    a plane takes pixel ``tile_pixel_perm[p]``); cam_samples f32[R,4]
+    (jitter xy in 0:2, the lens sample in 2:4)."""
     w, h, spp = cfg.width, cfg.height, cfg.spp
     n = spp * h * w
     if cam_samples.shape[0] != n:
@@ -62,6 +106,8 @@ def generate_rays(camera: Camera, cfg: RenderConfig,
                          f"expected {n}")
     dev = cam_samples.device
     pix = torch.arange(n, dtype=torch.int32, device=dev) % (h * w)
+    if tile_order_active(cfg):
+        pix = tile_pixel_perm(cfg, dev)[pix.long()]
     px = (pix % w).to(torch.float32)
     py = (pix // w).to(torch.float32)
     jitter = torch.clamp(cam_samples[:, 0:2], 1e-5, 1.0 - 1e-5)

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from prismarine_core_tpu_torch.models.camera import (
+    tile_order_active, tile_pixel_perm)
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import (
     SAMPLES_PER_BOUNCE, SAMPLES_PER_CAMERA_RAY)
@@ -44,7 +46,8 @@ def make_coherent_sample_arrays(generator: torch.Generator, cfg,
     bounce-sample rows, so secondary rays leave nearby points in nearly
     the same directions.  Camera jitter stays independent per ray.
     Returns (cam f32[R,4], bounce f32[B,R,11]) in ``generate_rays``'s ray
-    layout ([spp, H, W] row-major)."""
+    layout ([spp, H, W] row-major; with an active ``primary_tile_order``
+    each lane takes its pixel's block)."""
     device = device or generator.device
     cam = torch.rand((cfg.n_rays, SAMPLES_PER_CAMERA_RAY),
                      generator=generator, device=device)
@@ -56,6 +59,8 @@ def make_coherent_sample_arrays(generator: torch.Generator, cfg,
     by = torch.arange(cfg.height, device=device) // bh
     bx = torch.arange(cfg.width, device=device) // bw
     bid = (by[:, None] * nbx + bx[None, :]).reshape(-1)       # [H*W]
+    if tile_order_active(cfg):
+        bid = bid[tile_pixel_perm(cfg, device)]
     bounce = ub[:, :, bid, :].reshape(cfg.max_bounces, cfg.n_rays,
                                       SAMPLES_PER_BOUNCE)
     return cam, bounce

@@ -39,9 +39,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from prismarine_core_tpu_torch.models.camera import generate_rays
 from prismarine_core_tpu_torch.render.integrator import (
-    interlace_mask, render_with_samples, trace)
+    primary_rays, radiance_image, render_with_samples, trace)
 from prismarine_core_tpu_torch.utils.config import (
     RenderConfig, check_supported)
 from prismarine_core_tpu_torch.utils.math import take_rows
@@ -374,11 +373,7 @@ def render_rows(mesh: Mesh, scene, camera, cfg: RenderConfig, cam_samples,
     check_supported(cfg)
     first = mesh.first
     camera = to_device(camera, first)
-    o, d = generate_rays(camera, cfg, cam_samples.to(first))
-    active = None
-    if cfg.interlace:
-        active = interlace_mask(cfg, 0, device=first).reshape(-1).repeat(
-            cfg.spp)
+    o, d, active = primary_rays(camera, cfg, cam_samples.to(first))
     slices = row_slices(mesh, o.shape[0])
     parts = {}
     for i, sl in enumerate(slices):
@@ -391,8 +386,7 @@ def render_rows(mesh: Mesh, scene, camera, cfg: RenderConfig, cam_samples,
                        bounce_samples[:, sl].to(dev),
                        None if active is None else active[sl].to(dev))
         parts[i] = rad.to(first)
-    radiance = assemble_rows(mesh, parts, slices)
-    return radiance.reshape(cfg.spp, cfg.height, cfg.width, 3).mean(dim=0)
+    return radiance_image(cfg, assemble_rows(mesh, parts, slices))
 
 
 def make_sharded_renderer(mesh: Mesh, cfg: RenderConfig,

@@ -19,14 +19,18 @@ texture fetches and perturb the shading normal by the bump map.  With
 (survivors reweighted by 1/q); an ``active`` mask (interlacing) retires
 lanes before the first bounce.
 
-The port runs ``intersector="brute"`` (the oracle; on a scene laid out by
-``shard_scene(shard_triangles=True)`` over the mesh's triangle ranges),
-``"bvh"`` (the default: the skip-link walk, ``accel/traverse.py``),
-``"pallas"`` (the packet query on the hand-written kernels) and
-``"pallas_sharded"`` (the packet query over ``cfg.mesh``'s superblock
-ranges, ``parallel/shard_intersect.py``, whose winning shard carries the
-hit's surface fields to shading); ``check_supported`` raises for knobs
-outside that slice.
+The port runs every intersector of the JAX package: ``"brute"`` (the
+oracle; on a scene laid out by ``shard_scene(shard_triangles=True)`` over
+the mesh's triangle ranges), ``"bvh"`` (the default: the skip-link walk,
+``accel/traverse.py``), ``"packet"`` (the tile-frustum packet query),
+``"pallas"`` (the packet query on the hand-written kernels, with every
+knob) and ``"pallas_sharded"`` (the packet query over ``cfg.mesh``'s
+superblock ranges, ``parallel/shard_intersect.py``, whose winning shard
+carries the hit's surface fields to shading).  Under "pallas", ``trace``
+peels bounce 0 off for ``primary_identity`` / ``primary_tile_order`` (no
+coherence sort for the camera rays) and ``reuse_bounce_order`` (one sort
+after bounce 0 for every later bounce); "pallas_sharded" ignores those
+three flags, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ import math
 
 import torch
 
-from prismarine_core_tpu_torch.models.camera import Camera, generate_rays
+from prismarine_core_tpu_torch.models.camera import (
+    Camera, generate_rays, tile_order_active, tile_pixel_inv_perm,
+    tile_pixel_perm)
 from prismarine_core_tpu_torch.models.textures import (
     env_pdf, sample_bicubic, sample_bilinear, sample_env_direction)
 from prismarine_core_tpu_torch.ops import sampling as smp
@@ -70,17 +76,24 @@ def _need_bvh(scene):
             "with scene.with_bvh() (Scene.assemble does by default)")
 
 
+def _need_packets(scene):
+    if scene.packets is None:
+        raise ValueError("scene.packets is None — build with "
+                         "scene.with_bvh()")
+
+
 def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
                 with_order: bool = False, order=None,
                 with_surface: bool = False):
     """Closest hit through the configured intersector.  ``t_cap`` zeroes
-    lanes whose result is unused (the packet query drops them; "bvh", as
-    in the JAX package, walks every lane to INF_DIST); ``with_order``
-    also returns the packet query's coherence sort (None for "brute" and
-    "bvh") for the same bounce's shadow query; ``with_surface`` (with
-    ``with_order``) also returns the "pallas_sharded" query's carried
-    surface fields (None on the other intersectors, which shade from the
-    soup)."""
+    lanes whose result is unused (the "pallas" queries drop them; "bvh"
+    and "packet", as in the JAX package, run every lane to INF_DIST);
+    ``with_order`` also returns the "pallas" queries' coherence sort (None
+    for the others) for the same bounce's shadow query, and ``order``
+    passes one in (a bounce's fixed order, or "identity");
+    ``with_surface`` (with ``with_order``) also returns the
+    "pallas_sharded" query's carried surface fields (None on the other
+    intersectors, which shade from the soup)."""
     carried = None
     if cfg.intersector == "brute":
         if scene.shard_triangles:
@@ -98,11 +111,14 @@ def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
         hit, order = intersect_closest_bvh(
             scene.bvh, scene.triangles, o, d, chunk=cfg.traverse_chunk,
             sort=cfg.sort_rays), None
+    elif cfg.intersector == "packet":
+        from prismarine_core_tpu_torch.accel import packet as pk
+        _need_packets(scene)
+        hit, order = pk.intersect_closest_packet(
+            scene.bvh, scene.packets, scene.triangles, o, d), None
     elif cfg.intersector == "pallas":
         from prismarine_core_tpu_torch.accel import packet as pk
-        if scene.packets is None:
-            raise ValueError("scene.packets is None — build with "
-                             "scene.with_bvh()")
+        _need_packets(scene)
         hit, order = pk.intersect_closest_pallas(
             scene.bvh, scene.packets, scene.triangles, o, d, t_cap=t_cap,
             return_order=True, order=order,
@@ -136,6 +152,11 @@ def occluded(scene, o, d, t_max, cfg: RenderConfig, order=None):
         _need_bvh(scene)
         return occluded_bvh(scene.bvh, scene.triangles, o, d, t_max,
                             chunk=cfg.traverse_chunk, sort=cfg.sort_rays)
+    if cfg.intersector == "packet":
+        from prismarine_core_tpu_torch.accel import packet as pk
+        _need_packets(scene)
+        return pk.occluded_packet(scene.bvh, scene.packets, scene.triangles,
+                                  o, d, t_max)
     if cfg.intersector == "pallas":
         from prismarine_core_tpu_torch.accel import packet as pk
         return pk.occluded_pallas(scene.bvh, scene.packets, scene.triangles,
@@ -313,13 +334,15 @@ def surface_kinds(scene):
             else scene.materials.kinds_bound)
 
 
-def make_bounce_step(scene, cfg: RenderConfig):
+def make_bounce_step(scene, cfg: RenderConfig, fixed_order=None):
     """The per-bounce step: (carry, u f32[R,11]) -> (carry, stats i32[5]).
     The carry is (o, d, beta, radiance, alive, prev_pdf, miss_dir,
     miss_beta, miss_pdf, bounce index); the two pdfs (the bsdf pdf of each
     lane's last continuation, and of its miss) feed env-NEE MIS and stay
     zero without ``cfg.env_nee``; the bounce index (a Python int) turns
-    Russian roulette on."""
+    Russian roulette on.  ``fixed_order``: the closest query's ray order
+    instead of its own coherence sort ("identity", or a (perm, inv_perm)
+    of ``reuse_bounce_order``; "pallas" only)."""
     kinds = surface_kinds(scene)
 
     def step(carry, u):
@@ -327,7 +350,8 @@ def make_bounce_step(scene, cfg: RenderConfig):
          miss_pdf, bounce_i) = carry
         t_cap = torch.where(alive, INF_DIST, 0.0)
         hit, order, carried = closest_hit(scene, o, d, cfg, t_cap=t_cap,
-                                          with_order=True, with_surface=True)
+                                          with_order=True, order=fixed_order,
+                                          with_surface=True)
 
         # deferred env pickup: record (direction, throughput, bsdf pdf)
         # at the miss, fetch once after the loop
@@ -491,14 +515,34 @@ def trace(scene, cfg: RenderConfig, o, d, bounce_samples, active=None):
     """Trace rays through ``cfg.max_bounces`` bounces.  o, d f32[R,3];
     bounce_samples f32[B,R,11]; ``active`` bool[R] optionally masks lanes
     off from the start (interlacing; under "pallas" they query with
-    t_cap 0, as dead lanes do).  Returns (radiance f32[R,3],
+    t_cap 0, as dead lanes do).  Under "pallas", ``primary_identity`` (or
+    an active ``primary_tile_order``) runs bounce 0 in the rays' own order
+    and ``reuse_bounce_order`` sorts once after bounce 0 (``sort_mode``,
+    every lane live) for every later bounce.  Returns (radiance f32[R,3],
     stats i32[B,5])."""
     carry = initial_carry(o, d, active)
-    step = make_bounce_step(scene, cfg)
+    is_pallas = cfg.intersector == "pallas"
+    primary_ident = is_pallas and (cfg.primary_identity
+                                   or tile_order_active(cfg))
+    reuse = is_pallas and cfg.reuse_bounce_order
+    step = make_bounce_step(scene, cfg, fixed_order="identity"
+                            if primary_ident else None)
     stats = []
     for b in range(bounce_samples.shape[0]):
         carry, st = step(carry, bounce_samples[b])
         stats.append(st)
+        if b == 0 and (primary_ident or reuse) and bounce_samples.shape[0] > 1:
+            # bounce 0 peeled off: later bounces sort their own rays, or
+            # all reuse one sort of bounce 1's origins and directions
+            order = None
+            if reuse:
+                from prismarine_core_tpu_torch.accel import packet as pk
+                o1, d1 = carry[0].detach(), carry[1].detach()
+                order = pk._coherence_perm(
+                    scene.bvh.lo[0].detach(), scene.bvh.hi[0].detach(), o1,
+                    d1, torch.ones(o1.shape[0], device=o1.device),
+                    cfg.sort_mode)
+            step = make_bounce_step(scene, cfg, fixed_order=order)
     _, _, _, radiance, _, _, miss_dir, miss_beta, miss_pdf, _ = carry
     radiance = _env_pickup(scene, cfg, radiance, miss_dir, miss_beta,
                            miss_pdf)
@@ -511,6 +555,31 @@ def trace_radiance(scene, cfg: RenderConfig, o, d, bounce_samples,
     return trace(scene, cfg, o, d, bounce_samples, active)[0]
 
 
+def primary_rays(camera: Camera, cfg: RenderConfig, cam_samples,
+                 interlace_stage=0):
+    """The frame's camera rays in lane order and their live mask: (o, d
+    f32[R,3], active bool[R] or None without ``cfg.interlace``).  With an
+    active ``primary_tile_order`` the lanes are in 16x8-pixel-tile order,
+    the interlace mask with them."""
+    o, d = generate_rays(camera, cfg, cam_samples)
+    if not cfg.interlace:
+        return o, d, None
+    mask = interlace_mask(cfg, interlace_stage, device=o.device).reshape(-1)
+    if tile_order_active(cfg):
+        mask = mask[tile_pixel_perm(cfg, o.device)]
+    return o, d, mask.repeat(cfg.spp)
+
+
+def radiance_image(cfg: RenderConfig, radiance) -> torch.Tensor:
+    """Lane-order radiance f32[R,3] of ``primary_rays``' lanes as the image
+    f32[H,W,3] (mean over spp): an active ``primary_tile_order``'s lanes
+    put back in pixel order first."""
+    if tile_order_active(cfg):
+        radiance = radiance.reshape(cfg.spp, -1, 3)[
+            :, tile_pixel_inv_perm(cfg, radiance.device)]
+    return radiance.reshape(cfg.spp, cfg.height, cfg.width, 3).mean(dim=0)
+
+
 def render_with_samples(scene, camera: Camera, cfg: RenderConfig,
                         cam_samples, bounce_samples, interlace_stage=0,
                         with_stats: bool = False):
@@ -518,15 +587,13 @@ def render_with_samples(scene, camera: Camera, cfg: RenderConfig,
     f32[H,W,3] (mean over spp).  With ``cfg.interlace`` the pixels of the
     inactive checkerboard parity of ``interlace_stage`` come back zero.
     ``with_stats=True`` also returns i32[bounces, 5] per-bounce lane
-    counters [entering, surface, env-miss, surviving, NEE-shadow]."""
+    counters [entering, surface, env-miss, surviving, NEE-shadow].  With
+    an active ``primary_tile_order`` the lanes run in 16x8-pixel-tile
+    order and the radiance is put back in pixel order once, at the end."""
     check_supported(cfg)
-    o, d = generate_rays(camera, cfg, cam_samples)
-    active = None
-    if cfg.interlace:
-        active = interlace_mask(cfg, interlace_stage,
-                                device=o.device).reshape(-1).repeat(cfg.spp)
+    o, d, active = primary_rays(camera, cfg, cam_samples, interlace_stage)
     radiance, stats = trace(scene, cfg, o, d, bounce_samples, active)
-    img = radiance.reshape(cfg.spp, cfg.height, cfg.width, 3).mean(dim=0)
+    img = radiance_image(cfg, radiance)
     return (img, stats) if with_stats else img
 
 

@@ -1,10 +1,9 @@
 """Render configuration — the port's copy of ``prismarine_core_tpu.utils.config``.
 
 Every field of ``RenderConfig`` keeps its name and default, so one set of
-values drives both packages in the parity tests.  The port implements the
-slice of these knobs that the bench frame runs; ``check_supported`` raises
-``NotImplementedError`` for the rest, naming the ROADMAP item that ports
-them, rather than silently computing something else.
+values drives both packages in the parity tests.  The port runs every value of
+every knob that the JAX package defines; ``check_supported`` raises
+``ValueError`` for a value that neither package defines.
 """
 
 from __future__ import annotations
@@ -24,10 +23,13 @@ KERNEL_FORMS = ("mt", "mt2", "mxu")
 #: the packet query's execution strategies ("" = the query type's
 #: default: "two_round" for closest hits, "rounds" for any-hit)
 STRATEGIES = ("", "single", "two_round", "rounds")
-#: the packet query's dense culls ("xla", the JAX package's third, is not
-#: ported) and two_round's round-2 re-culls under "pallas"
-CULL_IMPLS = ("pallas", "pallas2")
+#: the packet query's dense culls ("xla" computes "pallas2"'s functions:
+#: accel/packet.py) and two_round's round-2 re-culls under "pallas"
+CULL_IMPLS = ("pallas", "pallas2", "xla")
 RECULLS = ("sb", "kernel", "tn")
+#: the coherence sort's variants (accel/packet.py:_coherence_perm)
+SORT_MODES = ("full", "packed", "group")
+INTERSECTORS = ("brute", "bvh", "packet", "pallas", "pallas_sharded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,11 +58,11 @@ class RenderConfig:
     #: triangle-block size of the brute-force intersector
     tri_block: int = 512
     bvh_leaf_size: int = 4
-    #: "brute" | "bvh" | "packet" | "pallas" | "pallas_sharded"; the port
-    #: runs "brute", "bvh" (the skip-link walk, accel/traverse.py),
-    #: "pallas" (the packet query on the hand-written kernels,
-    #: accel/packet.py) and "pallas_sharded" (the packet query over the
-    #: superblock ranges of ``mesh``, parallel/shard_intersect.py)
+    #: "brute" | "bvh" (the skip-link walk, accel/traverse.py) | "packet"
+    #: (the tile-frustum packet query, accel/packet.py) | "pallas" (the
+    #: packet query on the hand-written kernels, accel/packet.py) |
+    #: "pallas_sharded" (the packet query over the superblock ranges of
+    #: ``mesh``, parallel/shard_intersect.py)
     intersector: str = "bvh"
     #: the device mesh of "pallas_sharded" (parallel/mesh.py:make_mesh)
     mesh: object = None
@@ -112,24 +114,10 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
 
-_KNOBS = "ROADMAP queue 1, 'Packet-path knobs off the main path'"
-_XLA_CULL = ("ROADMAP queue 1, item 12(b), 'Packet-path knobs off the main "
-             "path'")
-_INTERSECTORS = "ROADMAP queue 1, 'Other intersectors'"
-
-
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
-
-
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for any knob outside the ported slice
-    (ValueError for an intersector no package has, and for
-    "pallas_sharded" without a mesh)."""
-    if cfg.intersector == "packet":
-        _unsupported("intersector='packet' (the XLA packet path)",
-                     _INTERSECTORS)
-    if cfg.intersector not in ("brute", "bvh", "pallas", "pallas_sharded"):
+    """Raise ValueError for a knob value that no package defines, and for
+    "pallas_sharded" without a mesh."""
+    if cfg.intersector not in INTERSECTORS:
         raise ValueError(f"unknown intersector {cfg.intersector!r}")
     if cfg.intersector == "pallas_sharded" and cfg.mesh is None:
         raise ValueError("intersector='pallas_sharded' needs cfg.mesh "
@@ -137,37 +125,27 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.intersector in ("pallas", "pallas_sharded"):
         check_query_knobs(
             cull_impl=cfg.cull_impl, sort_mode=cfg.sort_mode,
-            kernel_form=cfg.kernel_form, near_frac=cfg.near_frac,
+            kernel_form=cfg.kernel_form,
             anyhit_cull_impl=cfg.anyhit_cull_impl, recull=cfg.recull,
             strategies=(cfg.closest_strategy, cfg.anyhit_strategy or
                         "rounds"))
-        for flag in ("primary_tile_order", "primary_identity",
-                     "reuse_bounce_order"):
-            if getattr(cfg, flag):
-                _unsupported(flag, _KNOBS)
 
 
 def check_query_knobs(cull_impl="pallas", sort_mode="full",
-                      kernel_form="mt", near_frac=0.0,
-                      anyhit_cull_impl="", recull="sb",
+                      kernel_form="mt", anyhit_cull_impl="", recull="sb",
                       strategies=()) -> None:
     """The packet-query subset of ``check_supported``."""
     for knob, impl in (("cull_impl", cull_impl),
                        ("anyhit_cull_impl", anyhit_cull_impl or cull_impl)):
-        if impl == "xla":
-            _unsupported(f"{knob}='xla' (the XLA cull stages)", _XLA_CULL)
         if impl not in CULL_IMPLS:
-            raise ValueError(f"{knob}={impl!r} is none of {CULL_IMPLS} "
-                             "or 'xla'")
+            raise ValueError(f"{knob}={impl!r} is none of {CULL_IMPLS}")
     if recull not in RECULLS:
         raise ValueError(f"recull={recull!r} is none of {RECULLS}")
-    if sort_mode != "full":
-        _unsupported(f"sort_mode={sort_mode!r}", _KNOBS)
+    if sort_mode not in SORT_MODES:
+        raise ValueError(f"sort_mode={sort_mode!r} is none of {SORT_MODES}")
     if kernel_form not in KERNEL_FORMS:
         raise ValueError(f"kernel_form={kernel_form!r} is none of "
                          f"{KERNEL_FORMS}")
-    if near_frac != 0.0:
-        _unsupported("near_frac", _KNOBS)
     for s in strategies:
         if s not in STRATEGIES:
             raise ValueError(f"strategy={s!r} is none of {STRATEGIES}")

@@ -11,7 +11,8 @@ bit-identical to 4 straight), the progressive renderer (the accumulator,
 weights and image within 1 ulp of JAX's on the same frames, and equal bit
 for bit to sequential ``render_with_samples`` on a cloned generator), and
 the CLI (subprocesses on the CPU whose .npy equals the renderer's
-snapshot; every unported flag exits non-zero naming its ROADMAP item).
+snapshot; every packet-path flag of the JAX CLI renders, its image
+within the image gate of the default flags' image).
 """
 
 import dataclasses
@@ -60,6 +61,7 @@ from prismarine_core_tpu_torch.utils import profiling  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import RenderConfig  # noqa: E402
 from tests.test_gltf import _make_gltf  # noqa: E402
 from tests.test_io_scene import _write_obj  # noqa: E402
+from tests.test_torch_render import assert_image_parity  # noqa: E402
 from tests.test_torch_scene import (  # noqa: E402
     assert_dataclass_equal, jax_scene_arrays)
 
@@ -402,31 +404,36 @@ def test_cli_writes_the_renderers_image(tmp_path, intersector):
     assert npy.mean() > 1e-2
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--intersector", "packet"], "Other intersectors"),
-    (["--sort-mode", "packed"], "Packet-path knobs"),
-    (["--sort-mode", "group"], "Packet-path knobs"),
-    (["--cull-impl", "pallas"], None),
-    (["--cull-impl", "xla"], "item 12(b)"),
-    (["--reuse-order"], "Packet-path knobs"),
+@pytest.fixture(scope="module")
+def default_cli_npy(tmp_path_factory):
+    """The NPY of the CLI's default flags on CLI_BASE."""
+    from prismarine_core_tpu_torch import cli
+    out = tmp_path_factory.mktemp("cli_default") / "r.png"
+    cli.main(CLI_BASE + ["--device", "cpu", "--out", str(out)])
+    return np.load(out.with_suffix(".npy"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--intersector", "packet"],
+    ["--sort-mode", "packed"],
+    ["--sort-mode", "group"],
+    ["--cull-impl", "pallas"],
+    ["--cull-impl", "xla"],
+    ["--reuse-order"],
 ], ids=["packet", "packed", "group", "cull-pallas", "cull-xla",
         "reuse-order"])
-def test_cli_unported_flags_exit_nonzero(capsys, tmp_path, flags, item):
-    """Unported knobs exit 2 naming their ROADMAP item; ``--cull-impl
-    pallas`` (the block-granular cull, item 12(a)) is ported and renders."""
+def test_cli_packet_flags_render(tmp_path, default_cli_npy, flags):
+    """Every packet-path flag of the JAX CLI renders in the port, and its
+    NPY passes the image gate (tests/test_torch_render.py's criterion)
+    against the default flags' NPY: each flag re-schedules the same ray
+    tests ("packet" runs another cull before the same kernel)."""
     from prismarine_core_tpu_torch import cli
-    args = CLI_BASE + ["--device", "cpu", "--out",
-                       str(tmp_path / "r.png")] + flags
-    if item is None:
-        cli.main(args)
-        assert np.load(tmp_path / "r.npy").mean() > 1e-2
-        return
-    with pytest.raises(SystemExit) as e:
-        cli.main(args)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "NotImplementedError" in err and "ROADMAP" in err and item in err
-    assert "Packet-path knobs" in err or "Other intersectors" in err
+    out = tmp_path / "r.png"
+    assert cli.main(CLI_BASE + ["--device", "cpu", "--out", str(out)]
+                    + flags) == 0
+    npy = np.load(tmp_path / "r.npy")
+    assert npy.mean() > 1e-2
+    assert_image_parity(npy, default_cli_npy)
 
 
 def test_cli_without_a_card_names_it(capsys, monkeypatch):

@@ -117,8 +117,10 @@ def test_occluded_query_matches_jax(scenes, kw):
 
 
 def test_order_reuse_and_unported_knobs(scenes):
-    """A shadow query may reuse the closest query's sort; knobs outside
-    the slice raise instead of computing something else."""
+    """A shadow query may reuse the closest query's sort; the knobs the
+    port once refused ("xla", "packed", near_frac) run and give the
+    default query's t bit for bit (slots on tie lanes), and a value no
+    package defines raises ValueError."""
     _, ts, (o, d) = scenes
     o, d = torch.tensor(np.asarray(o)), torch.tensor(np.asarray(d))
     hit, order = tpk.intersect_closest_pallas(
@@ -129,14 +131,17 @@ def test_order_reuse_and_unported_knobs(scenes):
     b = tpk.occluded_pallas(ts.bvh, ts.packets, ts.triangles, o, d, t_max,
                             strategy="single")
     assert torch.equal(a, b)
-    for bad in (dict(near_frac=0.5), dict(cull_impl="xla"),
-                dict(sort_mode="packed")):
-        with pytest.raises(NotImplementedError):
-            tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles,
-                                         o, d, **bad)
-    with pytest.raises(ValueError):            # no such kernel form
-        tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles, o, d,
-                                     kernel_form="mt3")
+    for knob in (dict(near_frac=0.5), dict(cull_impl="xla"),
+                 dict(sort_mode="packed")):
+        h = tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles,
+                                         o, d, **knob)
+        assert torch.equal(h.t, hit.t)
+        _agree(f"{knob} tri", h.tri.numpy(), hit.tri.numpy())
+    for bad in (dict(kernel_form="mt3"), dict(sort_mode="bitonic"),
+                dict(cull_impl="cuda")):
+        with pytest.raises(ValueError):        # no package has them
+            tpk.intersect_closest_pallas(ts.bvh, ts.packets, ts.triangles, o,
+                                         d, **bad)
     # the any-hit default, "rounds" (tests/test_torch_rounds.py), gives
     # the "single" occlusion
     assert torch.equal(tpk.occluded_pallas(ts.bvh, ts.packets,

@@ -134,8 +134,9 @@ def test_brute_matches_numpy_oracle():
 
 
 def test_render_entry_point_and_unported_knobs():
-    """``render`` draws its samples from a torch.Generator; knobs outside
-    the slice raise NotImplementedError."""
+    """``render`` draws its samples from a torch.Generator; the knobs the
+    port once refused run and give the default frame (up to tie lanes),
+    and a value no package defines raises ValueError."""
     scene = make_cornell_scene(device=CPU)
     cam = Camera.look_at(eye=CORNELL["eye"], target=CORNELL["target"],
                          fov_y_deg=CORNELL["fov"], device=CPU)
@@ -145,13 +146,17 @@ def test_render_entry_point_and_unported_knobs():
     b = tint.render(scene, cam, cfg, torch.Generator().manual_seed(1))
     assert torch.equal(a, b) and torch.isfinite(a).all()
     assert a.shape == (16, 16, 3) and a.mean() > 1e-2
-    for bad in (dict(reuse_bounce_order=True), dict(primary_identity=True),
-                dict(primary_tile_order=True), dict(sort_mode="group"),
-                dict(cull_impl="xla"),
-                dict(near_frac=0.5), dict(intersector="packet")):
-        with pytest.raises(NotImplementedError):
-            tint.render(scene, cam, cfg.replace(**bad),
-                        torch.Generator().manual_seed(1))
+    for knob in (dict(reuse_bounce_order=True), dict(primary_identity=True),
+                 dict(primary_tile_order=True), dict(sort_mode="group"),
+                 dict(cull_impl="xla"),
+                 dict(near_frac=0.5), dict(intersector="packet")):
+        img = tint.render(scene, cam, cfg.replace(**knob),
+                          torch.Generator().manual_seed(1))
+        if "primary_tile_order" in knob:
+            # lanes take other pixels' samples: another frame of the scene
+            assert torch.isfinite(img).all() and img.mean() > 1e-2
+        else:
+            assert_image_parity(img.numpy(), a.numpy())
     with pytest.raises(ValueError):            # no such kernel form
         tint.render(scene, cam, cfg.replace(kernel_form="mt3"),
                     torch.Generator().manual_seed(1))
@@ -160,4 +165,7 @@ def test_render_entry_point_and_unported_knobs():
                     torch.Generator().manual_seed(1))
     with pytest.raises(ValueError):            # no such intersector
         tint.render(scene, cam, cfg.replace(intersector="octree"),
+                    torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError):            # no such sort
+        tint.render(scene, cam, cfg.replace(sort_mode="radix"),
                     torch.Generator().manual_seed(1))
