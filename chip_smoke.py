@@ -9,8 +9,9 @@ ingest, bench.py's teapot and independent-sampling frames), the
 device mesh ("pallas_sharded", sharded textures, the sharded train step,
 on meshes that repeat the card), the reference's default packet cull
 (cull_impl="pallas"), the mesh over processes (two worker processes
-sharing the card), and the last packet knobs and the "packet" intersector
-on one NVIDIA GPU.
+sharing the card), the last packet knobs and the "packet" intersector,
+and the example programs (inverse rendering, the two time-to-quality
+studies, the rebuild-vs-refit bench) on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -226,7 +227,31 @@ Phases (any failure exits non-zero):
                 sb_intersect time on the packet pairs; (f) the CLI with
                 --intersector packet and with --cull-impl xla --sort-mode
                 group --reuse-order at 320x180, two subprocesses at once,
-                each exiting 0 with its PNG.
+                each exiting 0 with its PNG;
+ 19. examples — the example programs (prismarine_core_tpu_torch/examples/)
+                in this process (phase_examples): (a) inverse_rendering at
+                its defaults (cornell, 48x48, 60 Adam steps on the "bvh"
+                walk): exit 0 (albedo L1 < 0.15), its PNG strip written
+                into a temporary directory; the loop again through
+                recover_albedo: the walk launched on every step and no
+                other kernel, ms/step (host clock, one synchronize a step,
+                steps 2-60), peak memory, one profiled step; one loss and
+                gradient on the walk's plain version within relative L2
+                1e-5 of the kernel's; (b) r6_rr_quality and (c)
+                coherent_quality_ab at blocks 16 and 64, at the JAX
+                scripts' configurations: one frame of each mode with the
+                launch counters read around it (phase 4's kind) and
+                against the same frame on the kernels' plain versions by
+                the image gate, one profiled frame each (device busy, idle
+                share), then the study at a 3 s budget a mode with
+                the reference 10 x the larger frame count: n_ref >= 10 x
+                the frames, every MSE finite and > 0, no measured seed in
+                the reference's range; frames, ms/frame, MSE, the
+                reference's variance term and the ratio; (d)
+                r5_refit_bench at 100,000 target triangles: build_bvh,
+                refit_bvh and build_packet_set ms under "karras" and
+                "median", and refit_bvh's boxes equal to build_bvh's on
+                the unchanged soup.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
@@ -234,7 +259,8 @@ JSON (the five ported kernels and bvh_walk, with their launches on each
 path, the sharded, default-cull and per-process ones included, and
 block_cull's 2,048-box time and bound beside its 256-box ones; and every
 frame's, the step's, the edge path's, the application phase's, the mesh
-phase's, the default cull's, the processes' and the knobs' results),
+phase's, the default cull's, the processes', the knobs' and the examples'
+results),
 nvidia-smi's line, and ``{"ok": true, "device": {...}}``.  The script
 exits 0 only when every phase passes.  Nothing falls back to the CPU.
 """
@@ -341,6 +367,23 @@ PACKET_LAUNCHES = {"sb_intersect": 2 * BOUNCES}
 KNOB_FRAMES = ("frame_xla", "frame_sort_packed", "frame_sort_group",
                "frame_near_frac", "frame_primary_identity",
                "frame_reuse_order", "frame_tile_order", "frame_packet")
+#: phase 19: the example programs.  Each study's wall-clock budget a mode
+#: (its reference: REF_FACTOR x the larger frame count), the coherent
+#: study's blocks (its default, the bench frame's), the inverse-rendering
+#: demo's steps, and the refit bench's target triangles
+STUDY_BUDGET_S = 3.0
+STUDY_BLOCKS = (16, 64)
+INVERSE_STEPS = 60
+REFIT_TRIS = 100_000
+#: the bound (relative L2) of the inverse step's loss and diffuse gradient
+#: on the walk's plain version against the kernel (the same forward bits:
+#: only the backward's atomic order may differ)
+INVERSE_PLAIN_BOUND = 1e-5
+#: the inverse loop's steps whose per-material error is logged, and where
+#: the card's sample draw is saved (for tests/torch_inverse_reference.py,
+#: which runs the JAX package's loop on it)
+INVERSE_TABLE_STEPS = (20, INVERSE_STEPS - 1)
+INVERSE_SAMPLES = REPO / "build" / "inverse_samples.npz"
 #: the profiler's own range around each scheduled step (a span, no op)
 STEP_RANGE = "ProfilerStep"
 #: the normalized-SGD rates of tests/test_parallel.py:103-105, tuned on
@@ -3157,6 +3200,290 @@ def phase_multiprocess(dev, img_2x2, loss_1x2, img, samples):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def run_main(module, argv):
+    """``module.main(argv)`` in this process, its stdout and stderr
+    captured and then logged: (exit code, the text, seconds)."""
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = module.main(argv)
+    secs = time.perf_counter() - t0
+    name = module.__name__.rsplit(".", 1)[-1]
+    for line in buf.getvalue().splitlines():
+        log(f"[{name}] | {line}")
+    log(f"[{name}] main({' '.join(argv)}) exit {rc} in {secs:.1f} s")
+    return rc, buf.getvalue(), secs
+
+
+def result_line(text: str, tag: str) -> dict:
+    """The JSON of an example's ``[tag] result {...}`` line."""
+    head = f"[{tag}] result "
+    lines = [x for x in text.splitlines() if x.startswith(head)]
+    require(len(lines) == 1, f"{tag}: {len(lines)} result lines")
+    return json.loads(lines[0][len(head):])
+
+
+def phase_inverse(dev):
+    """Phase 19a: examples/inverse_rendering at its defaults (cornell,
+    48x48, 2 spp, 2 bounces, "bvh", Adam 5e-2, INVERSE_STEPS steps): its
+    main exits 0 (albedo L1 < 0.15) with its PNG strip written into a
+    temporary directory; the same loop again through ``recover_albedo``
+    with the launch counters read around it (the walk on every step, no
+    other kernel), a host clock around each step ended by one synchronize
+    (ms/step: the mean of steps 2-INVERSE_STEPS), the error by material
+    and channel at INVERSE_TABLE_STEPS, peak memory and one profiled step;
+    and one loss and gradient on the walk's plain version against the
+    kernel's (INVERSE_PLAIN_BOUND).  The sample draw is saved as
+    INVERSE_SAMPLES."""
+    import tempfile
+    import numpy as np
+    import torch
+    from prismarine_core_tpu_torch.examples import inverse_rendering as inv
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
+    res = 48
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "inverse_result.png"
+        rc, text, secs = run_main(inv, ["--out", str(png)])
+        require(rc == 0, f"inverse_rendering exit {rc}")
+        require(png_size(png) == (2 * res, res), f"inverse strip "
+                f"{png_size(png)}")
+
+    scene, cam, cfg = inv.setup(res, dev)
+    cam_s, bounce_s = inv.sample_arrays(cfg, dev)
+    with torch.no_grad():
+        target = render_with_samples(scene, cam, cfg, cam_s, bounce_s)
+    true = scene.materials.diffuse
+    init = inv.gray_table(true)
+    INVERSE_SAMPLES.parent.mkdir(exist_ok=True)
+    np.savez(INVERSE_SAMPLES, cam=cam_s.cpu().numpy(),
+             bounce=bounce_s.cpu().numpy())
+    torch.cuda.synchronize()
+
+    stamps, tables = [], {}
+
+    def stamp(i, loss, diffuse):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if i in INVERSE_TABLE_STEPS:
+            tables[i] = (diffuse.detach()[:, :3] - true[:, :3]).cpu()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = zero_launches()
+    stamps.append(time.perf_counter())
+    losses, final = inv.recover_albedo(scene, cam, cfg, cam_s, bounce_s,
+                                       init, INVERSE_STEPS, target=target,
+                                       on_step=stamp)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    ms = sum(steps_ms[1:]) / len(steps_ms[1:])
+    losses = losses.cpu().tolist()
+    l1 = inv.albedo_l1(final, true)
+    per_step = launches["bvh_walk"] / INVERSE_STEPS
+    log(f"[inverse] {INVERSE_STEPS} steps: loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}, albedo L1 {l1:.4f}; launches {launches} "
+        f"({per_step:g} walks a step); {ms:.3f} ms/step over steps 2-"
+        f"{INVERSE_STEPS} (step 1 {steps_ms[0]:.1f} ms); peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    for i, err in tables.items():
+        log(f"[inverse] step {i} error by material (r g b): " + "; ".join(
+            f"m{m} " + " ".join(f"{v:+.4f}" for v in row)
+            for m, row in enumerate(err.tolist())))
+    require(all(math.isfinite(x) for x in losses), "inverse: losses")
+    require(l1 < inv.L1_PASS and losses[-1] < losses[0],
+            f"inverse: albedo L1 {l1}, losses {losses[0]} -> {losses[-1]}")
+    require(launches["bvh_walk"] > 0 and per_step == int(per_step)
+            and all(n == 0 for k, n in launches.items() if k != "bvh_walk"),
+            f"inverse launches {launches}")
+
+    def loss_grad():
+        d = init.clone().requires_grad_(True)
+        img = render_with_samples(inv.with_diffuse(scene, d), cam, cfg,
+                                  cam_s, bounce_s)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+        return loss.detach(), d.grad
+    loss_k, grad_k = loss_grad()
+    with plain_walk():
+        loss_p, grad_p = loss_grad()
+    rel = float((grad_k - grad_p).norm() / grad_p.norm())
+    loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    small = int((grad_k.abs() < 1e-6).sum())
+    same = bool(torch.equal(loss_k, loss_p) and torch.equal(grad_k, grad_p))
+    log(f"[inverse] plain walk: loss {float(loss_p):.9f} vs "
+        f"{float(loss_k):.9f} (rel {loss_rel:.2e}), gradient rel L2 "
+        f"{rel:.2e}, bit-identical {same}; {small} of {grad_k.numel()} "
+        f"components |g| < 1e-6")
+    require(rel <= INVERSE_PLAIN_BOUND and loss_rel <= INVERSE_PLAIN_BOUND,
+            f"inverse: plain walk gradient rel {rel}, loss rel {loss_rel}")
+
+    prof = profile_once(lambda: inv.recover_albedo(
+        scene, cam, cfg, cam_s, bounce_s, init, 1, target=target),
+        "inverse step")
+    return dict(exit=rc, main_s=secs, first_loss=losses[0],
+                last_loss=losses[-1], albedo_l1=l1, ms_per_step=ms,
+                step1_ms=steps_ms[0], walks_per_step=per_step,
+                peak_mem_bytes=peak, plain_grad_rel_l2=rel,
+                plain_loss_rel=loss_rel, plain_bit_identical=same,
+                small_grad_components=small, profile=prof,
+                error_tables={i: t.tolist() for i, t in tables.items()},
+                launches=launches)
+
+
+def study_frame_gate(fn, tag, bounds):
+    """One study frame ``fn()`` with every launch counter read around it
+    (each kernel within ``bounds`` = {kernel: (least, most)}, every other
+    kernel 0), finite, then the same frame on the kernels' plain versions,
+    bit for bit (the image gate's numbers logged beside), and one profiled
+    frame."""
+    import torch
+    read = zero_launches()
+    img = fn()
+    torch.cuda.synchronize()
+    launches = read()
+    log(f"[{tag}] launches {launches}, mean {float(img.mean()):.6f}")
+    for k, n in launches.items():
+        lo, hi = bounds.get(k, (0, 0))
+        require(lo <= n <= hi, f"{tag} {k}: {n} launches")
+    require(bool(torch.isfinite(img).all()), f"{tag}: non-finite image")
+    t0 = time.perf_counter()
+    with plain_versions():
+        ref = fn()
+    torch.cuda.synchronize()
+    log(f"[{tag}] plain-version frame in {time.perf_counter() - t0:.1f} s")
+    gate = image_gate(img, ref, tag)
+    require(torch.equal(img, ref), f"{tag}: frame != its plain-version "
+            "frame")
+    return dict(launches=launches, gate=gate, profile=profile_once(fn, tag))
+
+
+def study_gates(result, tag, seed_ranges):
+    """The study's gates: n_ref >= REF_FACTOR x the larger frame count,
+    every MSE finite and > 0, every measured seed outside the reference's
+    range."""
+    from prismarine_core_tpu_torch.examples import quality as q
+    n_ref = result["n_ref"]
+    most = max(m["frames"] for m in result["modes"].values())
+    require(n_ref >= q.REF_FACTOR * most, f"{tag}: n_ref {n_ref} < "
+            f"{q.REF_FACTOR} x {most} frames")
+    ref_seeds = (q.frame_seed(q.REFERENCE, 0),
+                 q.frame_seed(q.REFERENCE, n_ref - 1))
+    for mode, m in result["modes"].items():
+        require(math.isfinite(m["mse"]) and m["mse"] > 0,
+                f"{tag} {mode}: MSE {m['mse']}")
+        lo = q.frame_seed(seed_ranges[mode], 0)
+        hi = q.frame_seed(seed_ranges[mode], m["frames"] - 1)
+        require(hi < ref_seeds[0] or lo > ref_seeds[1],
+                f"{tag} {mode}: seeds [{lo}, {hi}] meet the reference's "
+                f"{ref_seeds}")
+        log(f"[{tag}] {mode}: {m['frames']} frames, {m['ms_per_frame']:.3f}"
+            f" ms/frame, MSE {m['mse']:.4e}, reference term "
+            f"{result['reference']['var_of_mean']:.4e} (n_ref {n_ref}, "
+            f"{result['ref_factor']:.1f} x)")
+    log(f"[{tag}] ratio {'/'.join(result['ratio_modes'])} "
+        f"{result['ratio']:.4f} -> {result['winner']}")
+
+
+def phase_studies(dev):
+    """Phases 19b and 19c: examples/r6_rr_quality (modes "rr-off", "rr-2")
+    and examples/coherent_quality_ab at each of STUDY_BLOCKS ("coherent",
+    "independent") at the JAX scripts' configurations: first one frame of
+    each mode through study_frame_gate (the RR modes and their packet
+    query as phase 4's frame; the coherent study's cull "pallas" with
+    any-hit "rounds": block_cull 1..3 a bounce, sb_intersect 1..2 + the
+    rounds a bounce, no pair_cull under stale masks), then each main with
+    budget STUDY_BUDGET_S (the reference REF_FACTOR x the larger frame
+    count) through study_gates."""
+    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.examples import (
+        coherent_quality_ab as qab, quality as q, r6_rr_quality as rrq)
+    scene, cam = q.study_scene(device=dev)
+    out, frames = {}, {}
+
+    for mode, c in rrq.configs().items():
+        frames[f"rr_quality_{mode}"] = study_frame_gate(
+            lambda c=c: rrq.frame(scene, cam, c, 1), f"rrq {mode}",
+            {k: (1, MAX_LAUNCHES) for k in MT_PATH})
+    rc, text, secs = run_main(rrq, [str(STUDY_BUDGET_S), "0"])
+    require(rc == 0, f"r6_rr_quality exit {rc}")
+    out["rr"] = result_line(text, rrq.TAG)
+    out["rr"]["seconds"] = secs
+    study_gates(out["rr"], "rrq", rrq.SEED_RANGES)
+
+    rounds = -(-scene.packets.n_superblocks // pk.K_FIRST)
+    bounds = {"block_cull": (1, 3 * BOUNCES),
+              "sb_intersect": (1, (2 + rounds) * BOUNCES)}
+    cfg = qab.config()
+    for blk in STUDY_BLOCKS:
+        for mode in qab.MODES:
+            if mode == "independent" and blk != STUDY_BLOCKS[0]:
+                continue            # the same frame at every block
+            key = (f"coherent_quality_{mode}" if mode == "independent"
+                   else f"coherent_quality_{mode}_b{blk}")
+            frames[key] = study_frame_gate(
+                lambda mode=mode, blk=blk: qab.frame(scene, cam, cfg, mode,
+                                                     1, blk),
+                f"qab {mode} b{blk}", bounds)
+        rc, text, secs = run_main(
+            qab, [str(STUDY_BUDGET_S), "0", str(blk)])
+        require(rc == 0, f"coherent_quality_ab exit {rc}")
+        out[f"coherent_b{blk}"] = result_line(text, qab.TAG)
+        out[f"coherent_b{blk}"]["seconds"] = secs
+        study_gates(out[f"coherent_b{blk}"], f"qab b{blk}", qab.SEED_RANGES)
+    return out, frames
+
+
+def phase_refit(dev):
+    """Phase 19d: examples/r5_refit_bench at REFIT_TRIS target triangles
+    (its three ms lines under each topology, no kernel launched), and
+    ``refit_bvh``'s boxes equal to ``build_bvh``'s on the unchanged soup
+    under each topology."""
+    import torch
+    from prismarine_core_tpu_torch.accel.lbvh import build_bvh, refit_bvh
+    from prismarine_core_tpu_torch.examples import r5_refit_bench as rb
+    from prismarine_core_tpu_torch.models.procedural import make_hall_scene
+    read = zero_launches()
+    rc, text, secs = run_main(rb, [str(REFIT_TRIS)])
+    launches = read()
+    require(rc == 0, f"r5_refit_bench exit {rc}")
+    res = result_line(text, "refit")
+    require(all(n == 0 for n in launches.values()),
+            f"refit bench launches {launches}")
+    soup = make_hall_scene(target_tris=REFIT_TRIS, build_bvh=False,
+                           device=dev).triangles
+    for topology in rb.TOPOLOGIES:
+        times = res[topology]
+        require(all(math.isfinite(v) and v > 0 for v in times.values()),
+                f"refit {topology}: {times}")
+        bvh = build_bvh(soup, leaf_size=rb.LEAF_SIZE, topology=topology)
+        refit = refit_bvh(bvh, soup)
+        same = bool(torch.equal(refit.lo, bvh.lo)
+                    and torch.equal(refit.hi, bvh.hi))
+        log(f"[refit] {topology}: build {times['build_bvh_ms']:.3f} ms, "
+            f"refit {times['refit_bvh_ms']:.3f}, packet set "
+            f"{times['build_packet_set_ms']:.3f}; refit boxes == build "
+            f"boxes {same}")
+        require(same, f"refit {topology}: boxes differ from the build's")
+        res[topology]["refit_boxes_equal"] = same
+    res.update(seconds=secs, launches=launches)
+    return res
+
+
+def phase_examples(dev):
+    """Phase 19: the example programs (phase_inverse, phase_studies,
+    phase_refit)."""
+    t0 = time.perf_counter()
+    inverse = phase_inverse(dev)
+    studies, frames = phase_studies(dev)
+    refit = phase_refit(dev)
+    secs = time.perf_counter() - t0
+    log(f"[examples] phase 19 in {secs:.1f} s")
+    return dict(inverse=inverse, studies=studies, study_frames=frames,
+                refit=refit, seconds=secs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3208,6 +3535,7 @@ def main() -> int:
     multiprocess = phase_multiprocess(dev, img_2x2,
                                       mesh["train_1x2"]["loss"], img, samples)
     knobs = phase_knobs(scene, cam, cfg, dev, img, frame)
+    examples = phase_examples(dev)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0),
                         app["rounds"]["max_abs_err"].get(k, 0.0),
@@ -3246,7 +3574,10 @@ def main() -> int:
              **{k: knobs[k] for k in KNOB_FRAMES},
              **{f"multiprocess_{part}_rank{res['rank']}": res[part]
                 for res in multiprocess["ranks"]
-                for part in ("frame_2x2", "train_1x2")}}
+                for part in ("frame_2x2", "train_1x2")},
+             "inverse_rendering": examples["inverse"],
+             **examples["study_frames"],
+             "refit_bench": examples["refit"]}
     replaces = {
         "block_cull": ("prismarine_core_tpu_torch/csrc/cull.cu",
                        "prismarine_core_tpu/ops/pallas_cull.py:51"),
@@ -3340,6 +3671,16 @@ def main() -> int:
                          if k != "ranks"},
         "knobs": {k: ({f: x for f, x in v.items() if f != "launches"}
                       if k in KNOB_FRAMES else v) for k, v in knobs.items()},
+        "examples": {
+            "inverse": {k: v for k, v in examples["inverse"].items()
+                        if k != "launches"},
+            "studies": examples["studies"],
+            "study_frames": {k: {f: x for f, x in v.items()
+                                 if f != "launches"}
+                             for k, v in examples["study_frames"].items()},
+            "refit": {k: v for k, v in examples["refit"].items()
+                      if k != "launches"},
+            "seconds": examples["seconds"]},
         "card": smi}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} "
         "s")

@@ -9,6 +9,7 @@ log directory) for deep dives.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from collections import defaultdict
@@ -17,18 +18,31 @@ from typing import Callable
 import torch
 
 
-def _sync(x) -> None:
-    """Wait for the device work that produced ``x`` (a tensor, or a
-    tuple/list/dict of them); a CPU tensor needs no wait."""
+def _tensors(x):
+    """The tensors in ``x``: a tensor, or a tuple/list/dict or dataclass
+    of them (nested)."""
     if isinstance(x, torch.Tensor):
-        if x.device.type == "cuda":
-            torch.cuda.synchronize(x.device)
+        yield x
     elif isinstance(x, dict):
         for v in x.values():
-            _sync(v)
+            yield from _tensors(v)
     elif isinstance(x, (tuple, list)):
         for v in x:
-            _sync(v)
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            yield from _tensors(getattr(x, f.name))
+
+
+def _cuda_devices(x) -> set:
+    return {t.device for t in _tensors(x) if t.device.type == "cuda"}
+
+
+def wait_for(x) -> None:
+    """Wait for the device work that produced ``x`` (a tensor, or a
+    tuple/list/dict or dataclass of them); a CPU tensor needs no wait."""
+    for device in _cuda_devices(x):
+        torch.cuda.synchronize(device)
 
 
 class StageTimers:
@@ -45,7 +59,7 @@ class StageTimers:
         t0 = time.perf_counter()
         yield
         if sync is not None:
-            _sync(sync)
+            wait_for(sync)
         self.totals[name] += time.perf_counter() - t0
         self.counts[name] += 1
 
@@ -61,16 +75,31 @@ class StageTimers:
 
 def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 3,
             **kw) -> float:
-    """Mean seconds per call after ``warmup`` warm calls (the last
-    result waited for inside the timed region)."""
-    for _ in range(warmup):
-        _sync(fn(*args, **kw))
-    t0 = time.perf_counter()
+    """Mean seconds per call after ``warmup`` warm calls.  Each call is
+    waited for (``wait_for`` of its result) before its clock stops: it runs
+    between two CUDA events when the warm result lies on the card, and
+    under the host clock otherwise."""
     out = None
-    for _ in range(iters):
+    for _ in range(warmup):
         out = fn(*args, **kw)
-    _sync(out)
-    return (time.perf_counter() - t0) / iters
+        wait_for(out)
+    on_card = bool(_cuda_devices(out))
+    total = 0.0
+    for _ in range(iters):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            wait_for(out)
+            end.synchronize()
+            total += 1e-3 * start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            wait_for(fn(*args, **kw))
+            total += time.perf_counter() - t0
+    return total / iters
 
 
 @contextlib.contextmanager

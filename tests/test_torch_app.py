@@ -143,6 +143,29 @@ def test_profiling_helpers(tmp_path):
     assert json.loads((tmp_path / "trace" / "trace.json").read_text())
 
 
+def test_time_fn_calls_and_waits_for_dataclass_results():
+    """``time_fn``: ``warmup`` + ``iters`` calls, each result waited for,
+    the tensors of a dataclass result (a BVH, a packet set) included."""
+    @dataclasses.dataclass
+    class Boxes:
+        lo: torch.Tensor
+        hi: tuple
+        n: int
+
+    calls = []
+
+    def build():
+        calls.append(1)
+        return Boxes(torch.zeros(3), (torch.ones(2), {"k": torch.ones(1)}),
+                     3)
+
+    assert [t.numel() for t in profiling._tensors(build())] == [3, 2, 1]
+    calls.clear()
+    assert profiling.time_fn(build, warmup=2, iters=3) > 0
+    assert len(calls) == 5
+    profiling.wait_for(build())          # CPU tensors: nothing to wait for
+
+
 def _jsoup(seed, n=7, capacity=9):
     rng = np.random.default_rng(seed)
     verts = rng.normal(size=(n + 2, 3)).astype(np.float32)
