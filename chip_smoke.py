@@ -91,19 +91,25 @@ Phases (any failure exits non-zero):
                 rounds 1 and 2, sun shadow, env shadow);
  10. walk     — the BVH walk kernel (csrc/bvh_walk.cu) at the bench
                 frame's bounce-1 rays: equal to its plain version (the
-                lockstep walk) on (t, slot) exactly for the closest and
-                the shadow query of the bounce-1 step under "bvh";
-                traversal_stats and the bound from them; CUDA-event times
-                in alternating turns of the closest walk unsorted, the
-                coherence sort alone, the closest walk sorted and the
-                shadow walk; the "bvh" closest query against the "pallas"
+                lockstep walk) on (t, slot) exactly for the closest query
+                of the bounce-1 step under "bvh" at every cap INF_DIST,
+                the same rays as the step caps them (dead lanes at 0),
+                and the shadow query;
+                the kernel's registers and spills; traversal_stats of the
+                lanes it walks and the bound from them; CUDA-event times
+                in alternating turns of the closest walk unsorted (every
+                cap INF_DIST, and capped), the coherence sort alone, the
+                closest walk sorted and the shadow walk, with node steps
+                and leaf visits per second and the dead-lane share; the
+                "bvh" closest query against the "pallas"
                 one on the same rays (hit/miss and triangle agreement;
                 lanes on another triangle are ties (equal t) or edge and
                 grazing lanes, and those must stay under 1e-4 of the
                 hits);
  11. frame bvh — bench.py's main configuration with intersector="bvh":
                 the frame's measurements, the walk launched 8 times and
-                no packet-query kernel, and >= 98% of pixels and the mean
+                no packet-query kernel, the same frame on the walk's plain
+                version bit-identical, and >= 98% of pixels and the mean
                 within 0.5% of the "mt" frame on the same samples;
  12. frames rr — the bench configuration with rr_start_bounce=2 on
                 "pallas" and on "bvh" (the same samples): each held to
@@ -303,8 +309,11 @@ FP32_PER_S, BYTES_PER_S = 67e12, 3.35e12
 #: (adds, subs, muls, the divide; compares and selects not counted)
 SLAB_OPS, MT_OPS, MXU_OPS = 23, 46, 39
 #: bytes the walk reads once per ray (o, d, t_cap) and writes (t, slot),
-#: per BVH node (lo, hi, left, skip) and per slot (tv0..2, orig)
-WALK_RAY_BYTES, WALK_NODE_BYTES, WALK_SLOT_BYTES = 28 + 8, 32, 40
+#: per dead ray (capped <= PZERO: t_cap read, (t, slot) written, o and d
+#: never loaded), per BVH node (lo, hi, left, skip) and per slot
+#: (tv0..2, orig)
+WALK_RAY_BYTES, WALK_DEAD_BYTES = 28 + 8, 4 + 8
+WALK_NODE_BYTES, WALK_SLOT_BYTES = 32, 40
 #: fp32 operations of the cull kernels' tile-level reject
 #: (csrc/cull.cu), counted as SLAB_OPS is: per ray of a tile's reduction
 #: (bounds_add: min of o, -o, iv, -iv per axis and of -t_cap), and per
@@ -1260,25 +1269,52 @@ def alternating_ms(fns, turns=5, reps=10):
     return {k: statistics.median(v) for k, v in runs.items()}, runs
 
 
+def walk_build_lines():
+    """The walk kernels' ``[build]`` lines (registers, spills) from the
+    library's ``-Xptxas -v`` log."""
+    from prismarine_core_tpu_torch import _build
+    lib_path = _build.library_path()
+    ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt")
+    if not ptxas.exists():
+        return []
+    return [line for line in ptxas_lines(ptxas.read_text())
+            if line.startswith("bvh_walk_kernel")]
+
+
 def phase_walk(scene, cam, cfg, dev):
     """The BVH walk kernel at the bench frame's bounce-1 rays: equal to
-    its plain version on the closest and the shadow query of the bounce-1
-    step under "bvh", traversal_stats and the bounds, the times in
-    alternating turns, and the "bvh" query against the "pallas" one."""
+    its plain version on the closest query (with every cap INF_DIST, the
+    first form's input, and as the bounce step gives it, dead lanes
+    capped at 0) and the shadow query of the bounce-1 step under "bvh";
+    traversal_stats and the bounds of the work each input needs (a dead
+    lane ends before its first step), the times in alternating turns with
+    node steps and leaf visits per second, the dead-lane share and the
+    kernel's registers, and the "bvh" query against the "pallas" one."""
     import torch
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.accel import traverse as tr
     from prismarine_core_tpu_torch.ops import bvh_walk as bw
     from prismarine_core_tpu_torch.render.integrator import _pallas_kwargs
-    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
     cfg_b = cfg.replace(intersector="bvh")
     _, _, _, carry1, bounce_s = first_bounce(scene, cam, cfg, dev)
     (bvh, co, cd, ct, _), (_, so, sd, st, _) = record_walks(
         scene, cfg_b, carry1, bounce_s[1])
-    queries = {"closest": (co, cd, ct, False), "shadow": (so, sd, st, True)}
+    alive = carry1[4]
+    require(torch.equal(ct, torch.where(alive, INF_DIST, 0.0)),
+            "the bvh closest query's cap is not the bounce's")
+    ci = torch.full_like(ct, INF_DIST)
+    queries = {"closest": (co, cd, ci, False),
+               "closest_capped": (co, cd, ct, False),
+               "shadow": (so, sd, st, True)}
     k = bvh.leaf_size
     tree_b = bvh.n_nodes * WALK_NODE_BYTES + bvh.tv0.shape[0] * WALK_SLOT_BYTES
-    out = {"rays": co.shape[0]}
+    dead_share = float((ct <= PZERO).float().mean())
+    out = {"rays": co.shape[0], "dead_share_closest": dead_share,
+           "dead_share_shadow": float((st <= PZERO).float().mean()),
+           "build": walk_build_lines()}
+    for line in out["build"]:
+        log(f"[walk] {line}")
     for label, (o, d, t_cap, any_hit) in queries.items():
         t, slot = bw.bvh_walk(bvh, o, d, t_cap, any_hit)
         torch.cuda.synchronize()
@@ -1288,18 +1324,24 @@ def phase_walk(scene, cam, cfg, dev):
         plain_ms = 1e3 * (time.perf_counter() - t0)
         require(torch.equal(t, tp) and torch.equal(slot, sp),
                 f"bvh_walk {label} (t, slot) != plain")
-        stats = tr.traversal_stats(bvh, o, d, t_cap)
+        # the work of the lanes the kernel walks: a lane capped <= PZERO
+        # ends before its first step, reading its cap alone
+        walked = t_cap > PZERO
+        n_walked = int(walked.sum())
+        stats = tr.traversal_stats(bvh, o[walked], d[walked], t_cap[walked],
+                                   any_hit)
         ops = SLAB_OPS * stats["steps"] + MT_OPS * k * stats["leaf_visits"]
-        b = bound(ops, o.shape[0] * WALK_RAY_BYTES + tree_b)
-        live = int((t_cap > 0).sum())
-        log(f"[walk] bounce1 {label}: {o.shape[0]} rays ({live} with t_cap "
-            f"> 0), {int((slot >= 0).sum())} hits; == plain exactly on every "
+        b = bound(ops, n_walked * WALK_RAY_BYTES + tree_b
+                  + (o.shape[0] - n_walked) * WALK_DEAD_BYTES)
+        log(f"[walk] bounce1 {label}: {o.shape[0]} rays "
+            f"({n_walked} walked, t_cap > PZERO), "
+            f"{int((slot >= 0).sum())} hits; == plain exactly on every "
             f"ray, the plain walk {plain_ms:.1f} ms (host clock); "
-            f"traversal_stats {stats} "
-            f"(the closest walk's{' at the shadow caps: an upper bound' if any_hit else ''}); "
+            f"traversal_stats of the walked lanes {stats}; "
             f"bound {b[0]:.4f} ms by {b[1]}")
         out[label] = dict(stats=stats, bound_ms=b[0], bound_by=b[1],
                           plain_ms=plain_ms, hits=int((slot >= 0).sum()),
+                          walked=n_walked,
                           max_abs_err=float((t - tp).abs().max()))
 
     # the coherence sort of _run_traversal: keys, sort, inverse, the three
@@ -1308,10 +1350,10 @@ def phase_walk(scene, cam, cfg, dev):
         perm = torch.sort(tr._ray_sort_keys(bvh, co, cd), stable=True)[1]
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(perm.shape[0], device=dev)
-        return co[perm], cd[perm], ct[perm], inv
+        return co[perm], cd[perm], ci[perm], inv
     po, pd, pt, inv = sort_rays()
     ts_, ss_ = bw.bvh_walk(bvh, po, pd, pt)
-    t_u, s_u = bw.bvh_walk(bvh, co, cd, ct)
+    t_u, s_u = bw.bvh_walk(bvh, co, cd, ci)
     require(torch.equal(ts_[inv], t_u) and torch.equal(ss_[inv], s_u),
             "bvh_walk on sorted rays != unsorted")
 
@@ -1319,19 +1361,46 @@ def phase_walk(scene, cam, cfg, dev):
         _, _, _, i = sort_rays()
         return ts_[i], ss_[i]
     med, runs = alternating_ms({
-        "closest": lambda: bw.bvh_walk(bvh, co, cd, ct),
+        "closest": lambda: bw.bvh_walk(bvh, co, cd, ci),
+        "closest_capped": lambda: bw.bvh_walk(bvh, co, cd, ct),
         "sort": sort_cost,
         "closest_sorted": lambda: bw.bvh_walk(bvh, po, pd, pt),
         "shadow": lambda: bw.bvh_walk(bvh, so, sd, st, True)})
     out["ms"], out["turns_ms"] = med, runs
-    cb = out["closest"]["bound_ms"]
+    # what walk_records saves each call after the first on one BVH
+    out["pack_ms"] = cuda_ms(lambda: (bw.pack_nodes(bvh),
+                                      bw.pack_slots(bvh)), 10)
+    log(f"[walk] packing the node and slot records {out['pack_ms']:.4f} ms "
+        f"({bvh.n_nodes} nodes, {bvh.tv0.shape[0]} slots); walk_records "
+        f"packs once per BVH")
+    rates = {}
+    for label, q in (("closest", "closest"),
+                     ("closest_capped", "closest_capped"),
+                     ("closest_sorted", "closest"),
+                     ("shadow", "shadow")):
+        st_ = out[q]["stats"]
+        rates[label] = {"node_steps_per_s": st_["steps"] / med[label] * 1e3,
+                        "leaf_visits_per_s":
+                            st_["leaf_visits"] / med[label] * 1e3}
+    out["rates"] = rates
+    ci_b, cb = out["closest"]["bound_ms"], out["closest_capped"]["bound_ms"]
+    sb = out["shadow"]["bound_ms"]
     log(f"[walk] bounce1 times (medians of 5 alternating turns of 10 "
-        f"launches): closest {med['closest']:.4f} ms ({cb / med['closest']:.4f} "
-        f"of its bound), coherence sort {med['sort']:.4f} ms + closest on "
-        f"sorted rays {med['closest_sorted']:.4f} ms "
-        f"({cb / med['closest_sorted']:.4f} of the bound), shadow "
-        f"{med['shadow']:.4f} ms (bound {out['shadow']['bound_ms']:.4f} ms, "
-        f"an upper bound); turns {({k: [round(x, 4) for x in v] for k, v in runs.items()})}")
+        f"launches): closest at every cap INF_DIST (the first form's "
+        f"input) {med['closest']:.4f} ms ({ci_b / med['closest']:.4f} of "
+        f"its bound {ci_b:.4f}); as the bounce step gives it (dead share "
+        f"{dead_share:.4f}) {med['closest_capped']:.4f} ms "
+        f"({cb / med['closest_capped']:.4f} of its bound {cb:.4f}); "
+        f"coherence sort {med['sort']:.4f} ms + closest on sorted rays "
+        f"(every cap INF_DIST) {med['closest_sorted']:.4f} ms "
+        f"({ci_b / med['closest_sorted']:.4f} of the bound); shadow "
+        f"{med['shadow']:.4f} ms ({sb / med['shadow']:.4f} of its bound "
+        f"{sb:.4f} by {out['shadow']['bound_by']}); turns "
+        f"{({k: [round(x, 4) for x in v] for k, v in runs.items()})}")
+    for label, r in rates.items():
+        log(f"[walk] bounce1 {label}: {r['node_steps_per_s'] / 1e9:.2f} G "
+            f"node steps/s, {r['leaf_visits_per_s'] / 1e9:.3f} G leaf "
+            f"visits/s")
 
     # the "bvh" query against the "pallas" query on the same rays
     o1, d1, alive = carry1[0], carry1[1], carry1[4]
@@ -1375,14 +1444,27 @@ def phase_walk(scene, cam, cfg, dev):
 def phase_frame_bvh(scene, cam, cfg, dev, mt_img):
     """bench.py's main configuration under intersector="bvh": the frame's
     measurements with the walk launched BVH_LAUNCHES times and no other
-    kernel, and the image gate against the "mt" frame (same samples)."""
+    kernel, the same frame on the walk's plain version bit-identical, and
+    the image gate against the "mt" frame (same samples)."""
+    import torch
+    from prismarine_core_tpu_torch.render.integrator import (
+        render_with_samples)
     cfg_b = cfg.replace(intersector="bvh")
-    img, res, _ = phase_frame(scene, cam, cfg_b, dev, tag="frame bvh",
-                              max_launches=BVH_LAUNCHES,
-                              mean_band=(1e-2, math.inf),
-                              kernels=("bvh_walk",))
+    img, res, samples = phase_frame(scene, cam, cfg_b, dev, tag="frame bvh",
+                                    max_launches=BVH_LAUNCHES,
+                                    mean_band=(1e-2, math.inf),
+                                    kernels=("bvh_walk",))
     require(res["launches"]["bvh_walk"] == BVH_LAUNCHES,
             f"frame bvh: {res['launches']['bvh_walk']} walk launches")
+    t0 = time.perf_counter()
+    with plain_walk():
+        ref = render_with_samples(scene, cam, cfg_b, *samples)
+    torch.cuda.synchronize()
+    same = torch.equal(img, ref)
+    log(f"[frame bvh] against the frame on the walk's plain version "
+        f"({time.perf_counter() - t0:.1f} s): bit-identical {same}")
+    require(same, "frame bvh: the image differs from its plain-walk frame")
+    res["plain_walk_bit_identical"] = same
     res["vs_mt"] = image_gate(img, mt_img, "frame bvh", "mt frame")
     return img, res
 
@@ -3618,24 +3700,35 @@ def main() -> int:
                             "under cull_impl='pallas' (the 2,048 block "
                             "boxes); 256: its round-2 superblock recull"})
     # the port's own kernel (the JAX package walks the BVH in XLA): the
-    # closest walk unsorted at bounce-1 rays, with the sorted and shadow
-    # walks beside it
+    # closest walk unsorted at bounce-1 rays at every cap INF_DIST, with
+    # the same rays as the bounce step caps them, the sorted and the
+    # shadow walks beside it
     rows.append(
         {"name": "bvh_walk", "route": "cuda",
          "source": "prismarine_core_tpu_torch/csrc/bvh_walk.cu",
          "replaces": None, "launches": launches["bvh_walk"],
          "launches_by_path": by_path["bvh_walk"],
-         "max_abs_err": max(walk["closest"]["max_abs_err"],
-                            walk["shadow"]["max_abs_err"]),
+         "max_abs_err": max(walk[q]["max_abs_err"] for q in
+                            ("closest", "closest_capped", "shadow")),
          "ms": walk["ms"]["closest"], "plain_ms": walk["closest"]["plain_ms"],
          "bound_ms": walk["closest"]["bound_ms"],
          "bound_by": walk["closest"]["bound_by"], "library_ms": None,
+         "dead_share": walk["dead_share_closest"],
+         "ms_capped": walk["ms"]["closest_capped"],
+         "plain_ms_capped": walk["closest_capped"]["plain_ms"],
+         "bound_ms_capped": walk["closest_capped"]["bound_ms"],
          "ms_sorted": walk["ms"]["closest_sorted"],
          "sort_ms": walk["ms"]["sort"], "ms_shadow": walk["ms"]["shadow"],
-         "bound_ms_shadow_upper": walk["shadow"]["bound_ms"],
+         "bound_ms_shadow": walk["shadow"]["bound_ms"],
+         "bound_by_shadow": walk["shadow"]["bound_by"],
          "plain_ms_shadow": walk["shadow"]["plain_ms"],
+         "rates": walk["rates"], "build": walk["build"],
+         "pack_ms": walk["pack_ms"],
          "shape": "bounce-1 rays of the bench frame, the closest query "
-                  "(sort_rays=False)"})
+                  "at every cap INF_DIST (sort_rays=False), as through "
+                  "the first form; _capped: the same rays as the bounce "
+                  "step gives them (dead lanes capped at 0); sorted: "
+                  "every cap INF_DIST, coherence-sorted"})
     table = {"kernels": rows,
         "frame": {k: v for k, v in frame.items() if k != "launches"},
         "frame_mt2": {k: v for k, v in frame2.items() if k != "launches"},

@@ -40,9 +40,9 @@ _SIGNATURES = {
     # prior_t, prior_slot, keys, csum, unit_pair, out_t, out_slot, n_rows,
     # n_pairs, unit, stream
     "sb_intersect_launch": (_P,) * 14 + (_I, _I, _I, _P),
-    # lo, hi, left, skip, tv0, tv1, tv2, orig, o, d, t_cap, out_t,
-    # out_slot, n_rays, n_nodes, leaf_size, any_hit, stream
-    "bvh_walk_launch": (_P,) * 13 + (_I, _I, _I, _I, _P),
+    # nodes, slots, o, d, t_cap, out_t, out_slot, next_ray, n_rays,
+    # n_nodes, leaf_size, any_hit, stream
+    "bvh_walk_launch": (_P,) * 8 + (_I, _I, _I, _I, _P),
 }
 # the "mt2" and "mxu" walks take the "mt" walk's arguments
 _SIGNATURES["sb_intersect_mt2_launch"] = _SIGNATURES["sb_intersect_launch"]

@@ -4,7 +4,7 @@ The counterpart of ``prismarine_core_tpu.accel.traverse``.  Every ray
 walks the LBVH's left-child and skip (preorder escape) links from the
 root: a slab test per node, a K-wide Moller-Trumbore test per intersected
 leaf, no stack.  The walk itself is ``ops/bvh_walk.py:bvh_walk``: the
-hand-written kernel ``csrc/bvh_walk.cu`` on the card, one thread per ray,
+hand-written kernel ``csrc/bvh_walk.cu`` on the card, one lane per ray,
 and the JAX package's lockstep walk in torch (``_traverse2``, the
 kernel's plain version) on the CPU.  ``_traverse`` is the single-phase
 lockstep walk, kept as the simplest statement of the same function.
@@ -106,11 +106,17 @@ def _detached(bvh):
 
 
 def intersect_closest_bvh(bvh, soup, o, d, chunk: int = 0,
-                          sort: bool = False) -> Hit:
+                          sort: bool = False, t_cap=None) -> Hit:
     """Closest hit through the BVH; differentiable in the soup's vertices,
-    ``o`` and ``d`` through the re-evaluation of the chosen triangle."""
-    t_cap = torch.full((o.shape[0],), INF_DIST, dtype=torch.float32,
-                       device=o.device)
+    ``o`` and ``d`` through the re-evaluation of the chosen triangle.
+    ``t_cap`` f32[R] (optional, INF_DIST for every lane by default) is a
+    per-lane far limit: only hits strictly below it count, and a lane
+    whose cap is <= PZERO (a dead lane) ends at once with no hit."""
+    if t_cap is None:
+        t_cap = torch.full((o.shape[0],), INF_DIST, dtype=torch.float32,
+                           device=o.device)
+    else:
+        t_cap = t_cap.detach().to(torch.float32)
     _, slot = _run_traversal(_detached(bvh), o.detach(), d.detach(), t_cap,
                              any_hit=False, chunk=chunk, sort=sort)
     return _reeval_hit(bvh, soup, o, d, slot)
@@ -126,9 +132,10 @@ def occluded_bvh(bvh, soup, o, d, t_max, chunk: int = 0,
     return slot >= 0
 
 
-def traversal_stats(bvh, o, d, t_cap=None) -> dict:
-    """Tree-quality counts of the closest-hit walk, totals over all rays
-    as Python ints: node steps, box tests passed, leaf visits."""
+def traversal_stats(bvh, o, d, t_cap=None, any_hit: bool = False) -> dict:
+    """Tree-quality counts of the closest-hit walk (with ``any_hit``, of
+    the walk that ends a ray at its first leaf with a hit), totals over
+    all rays as Python ints: node steps, box tests passed, leaf visits."""
     r = o.shape[0]
     dev = o.device
     n = bvh.n_nodes
@@ -154,10 +161,16 @@ def traversal_stats(bvh, o, d, t_cap=None) -> dict:
                                        bvh.tv2[slot])
         ok = ok & (bvh.orig[slot] >= 0) & (is_leaf & box_hit)[:, None]
         tt = torch.where(ok & (tt < bt[:, None]), tt, INF_DIST)
+        # a leaf test takes a hit below bt, or any leaf at a cap above
+        # INF_DIST (the plain walk's quirk: bt here is already INF_DIST)
+        better = (((tt.amin(dim=1) < bt) | (t_cap > INF_DIST))
+                  & is_leaf & box_hit)
         bt = torch.minimum(bt, tt.amin(dim=1))
         counts += torch.stack([active.sum(), box_hit.sum(),
                                (box_hit & is_leaf).sum()])
         nxt = torch.where(box_hit & ~is_leaf, left[ni], skip[ni])
+        if any_hit:
+            nxt = torch.where(better, n, nxt)
         node = torch.where(active, nxt, node)
     steps, box_pass, leaf_visits = counts.tolist()
     return {"steps": steps, "box_pass": box_pass, "leaf_visits": leaf_visits}

@@ -1,11 +1,19 @@
-"""The BVH walk: the kernel wrapper and its plain version.
+"""The BVH walk: the kernel wrapper, its records and its plain version.
 
 ``bvh_walk`` answers a closest-hit or any-hit query over the LBVH's
 left-child and skip links (``accel/lbvh.py``): per ray, the smallest t of a
 triangle hit strictly below ``t_cap`` and its slot in the BVH's reordered
 triangle arrays (-1 = none).  On a CUDA tensor it launches the
-hand-written kernel ``csrc/bvh_walk.cu`` (one thread per ray, walking the
-skip links with no stack); on a CPU tensor it runs ``bvh_walk_plain``.
+hand-written kernel ``csrc/bvh_walk.cu`` (persistent warps, each lane
+walking one ray at a time over the skip links with no stack); on a CPU
+tensor it runs ``bvh_walk_plain``.
+
+The kernel reads the BVH as packed records (``pack_nodes``,
+``pack_slots``): 32 bytes a node and 48 a triangle slot, the integer
+fields stored as float bits, built here in torch from the BVH it is given
+and kept for the last BVH walked (``walk_records``) under a key that sees
+every source tensor's storage and version, so a refit or any in-place
+change packs them anew.
 
 The kernel is the port's own: the JAX package walks the BVH in XLA
 (``prismarine_core_tpu/accel/traverse.py:_traverse2``), outside every
@@ -29,6 +37,9 @@ from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
 
 #: lockstep steps between two host checks of the plain walk
 UNROLL = 8
+#: int32 words of a packed node record (lo.xyz, link, hi.xyz, skip) and of
+#: a packed slot record (v0.xyz, orig, v1.xyz, 0, v2.xyz, 0)
+NODE_WORDS, SLOT_WORDS = 8, 12
 
 
 def guarded_inv(d):
@@ -115,12 +126,65 @@ def bvh_walk_plain_hits(bvh, o, d, t_cap, any_hit: bool = False):
     return t, slot.to(torch.int32)
 
 
+def pack_nodes(bvh):
+    """The kernel's node records, i32[N, 8]: (lo.xyz, link, hi.xyz, skip)
+    with lo and hi as their float bits; ``link`` is the left child of an
+    internal node and ~(first slot) = -(leaf * K) - 1 of a leaf (a node
+    at or past ``first_leaf``, as the plain walk tells them)."""
+    node = torch.arange(bvh.n_nodes, dtype=torch.int32,
+                        device=bvh.lo.device)
+    leaf = node - bvh.first_leaf
+    link = torch.where(leaf >= 0, ~(leaf * bvh.leaf_size),
+                       bvh.left.to(torch.int32))
+    return torch.cat([bvh.lo.contiguous().view(torch.int32), link[:, None],
+                      bvh.hi.contiguous().view(torch.int32),
+                      bvh.skip.to(torch.int32)[:, None]], dim=1)
+
+
+def pack_slots(bvh):
+    """The kernel's slot records, i32[L*K, 12]: (v0.xyz, orig, v1.xyz, 0,
+    v2.xyz, 0) with the vertices as their float bits, a leaf's K slots
+    one after another."""
+    zero = torch.zeros((bvh.tv0.shape[0], 1), dtype=torch.int32,
+                       device=bvh.tv0.device)
+    return torch.cat([bvh.tv0.contiguous().view(torch.int32),
+                      bvh.orig.to(torch.int32)[:, None],
+                      bvh.tv1.contiguous().view(torch.int32), zero,
+                      bvh.tv2.contiguous().view(torch.int32), zero], dim=1)
+
+
+#: (key, source tensors, (nodes, slots)) of the last BVH walked
+_records = None
+
+
+def walk_records(bvh):
+    """(nodes, slots) of ``bvh``, packed at the first call and then reused
+    while every source tensor keeps its storage, layout and version.  The
+    key holds each tensor's data pointer, shape, strides, dtype, device
+    and version counter (shared with every view and detached copy, so an
+    in-place write changes it), and the entry holds the tensors
+    themselves, so no other tensor can take their addresses while it is
+    kept; a refit makes new tensors, hence a new key.  Inference tensors
+    keep no version counter: their records are packed at every call."""
+    global _records
+    srcs = (bvh.lo, bvh.hi, bvh.left, bvh.skip, bvh.tv0, bvh.tv1, bvh.tv2,
+            bvh.orig)
+    if any(t.is_inference() for t in srcs):
+        return pack_nodes(bvh), pack_slots(bvh)
+    key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                 t.device, t._version) for t in srcs)
+    if _records is None or _records[0] != key:
+        with torch.no_grad():
+            _records = (key, srcs, (pack_nodes(bvh), pack_slots(bvh)))
+    return _records[2]
+
+
 def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
     """Closest (or, with ``any_hit``, first accepted) hit per ray: ``o``,
     ``d`` f32[R,3], ``t_cap`` f32[R] (only t strictly below it counts).
     Returns (t f32[R], slot i32[R]); t is t_cap where there is no hit.
-    CUDA tensors launch ``csrc/bvh_walk.cu``, CPU tensors run
-    ``bvh_walk_plain_hits``."""
+    CUDA tensors launch ``csrc/bvh_walk.cu`` on the BVH's packed records,
+    CPU tensors run ``bvh_walk_plain_hits``."""
     if o.device.type == "cpu":
         return bvh_walk_plain_hits(bvh, o, d, t_cap, any_hit)
     dev = o.device
@@ -143,12 +207,13 @@ def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
     out_slot = torch.empty((r,), dtype=torch.int32, device=dev)
     if r == 0:
         return out_t, out_slot
+    nodes, slots = walk_records(bvh)
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
     code = _build.library().bvh_walk_launch(
-        bvh.lo.data_ptr(), bvh.hi.data_ptr(), bvh.left.data_ptr(),
-        bvh.skip.data_ptr(), bvh.tv0.data_ptr(), bvh.tv1.data_ptr(),
-        bvh.tv2.data_ptr(), bvh.orig.data_ptr(), o.data_ptr(), d.data_ptr(),
-        t_cap.data_ptr(), out_t.data_ptr(), out_slot.data_ptr(), r, n,
-        bvh.leaf_size, int(any_hit), _build.stream_ptr(dev))
+        nodes.data_ptr(), slots.data_ptr(), o.data_ptr(), d.data_ptr(),
+        t_cap.data_ptr(), out_t.data_ptr(), out_slot.data_ptr(),
+        next_ray.data_ptr(), r, n, bvh.leaf_size, int(any_hit),
+        _build.stream_ptr(dev))
     _build.check(code, "bvh_walk_launch")
     bvh_walk.launches += 1
     return out_t, out_slot

@@ -86,8 +86,9 @@ def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
                 with_order: bool = False, order=None,
                 with_surface: bool = False):
     """Closest hit through the configured intersector.  ``t_cap`` zeroes
-    lanes whose result is unused (the "pallas" queries drop them; "bvh"
-    and "packet", as in the JAX package, run every lane to INF_DIST);
+    lanes whose result is unused (the "pallas" queries drop them, and the
+    "bvh" walk ends them before their first step; "packet", as in the JAX
+    package, runs every lane to INF_DIST);
     ``with_order`` also returns the "pallas" queries' coherence sort (None
     for the others) for the same bounce's shadow query, and ``order``
     passes one in (a bounce's fixed order, or "identity");
@@ -110,7 +111,7 @@ def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
         _need_bvh(scene)
         hit, order = intersect_closest_bvh(
             scene.bvh, scene.triangles, o, d, chunk=cfg.traverse_chunk,
-            sort=cfg.sort_rays), None
+            sort=cfg.sort_rays, t_cap=t_cap), None
     elif cfg.intersector == "packet":
         from prismarine_core_tpu_torch.accel import packet as pk
         _need_packets(scene)

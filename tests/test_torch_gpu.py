@@ -10,6 +10,8 @@ The kernels are built with -fmad=false and use their plain versions'
 operation order, so every comparison is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -576,6 +578,14 @@ def test_env_shadow_query_inputs_equal_plain(cuda_device, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
+def _hall_rays(r, seed, dev, live_frac=1.0):
+    """(o, d, t_cap) of ``r`` rays inside the small hall."""
+    o, d, t_cap = _rays(r, seed, dev, live_frac)
+    o = o * torch.tensor([1.0, 0.25, 0.4], device=dev) + torch.tensor(
+        [0.0, 2.0, 0.0], device=dev)
+    return o.contiguous(), d, t_cap
+
+
 def _walk_case(case, dev):
     """(bvh, o, d, t_cap) of one edge case of the BVH walk."""
     from prismarine_core_tpu_torch.models import procedural
@@ -583,10 +593,7 @@ def _walk_case(case, dev):
         scene = procedural.make_hall_scene(target_tris=3000, device=dev)
         bvh = build_bvh(scene.triangles, leaf_size=4,
                         topology=case.split("-")[1])
-        o, d, t_cap = _rays(4096, 51, dev)
-        o = o * torch.tensor([1.0, 0.25, 0.4], device=dev) + torch.tensor(
-            [0.0, 2.0, 0.0], device=dev)
-        return bvh, o.contiguous(), d, t_cap
+        return (bvh, *_hall_rays(4096, 51, dev))
     if case == "one-tri":
         soup = TriangleSoup.from_arrays(
             np.float32([[-1, -1, 0], [1, -1, 0], [0, 1, 0]]), [[0, 1, 2]],
@@ -637,6 +644,101 @@ def test_bvh_walk_equal_plain(cuda_device, case, any_hit):
     tp, slot_p, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
     assert torch.equal(t, tp) and torch.equal(slot.long(), slot_p)
     if case not in ("t-cap-0", "beyond-inf"):
+        assert int((slot >= 0).sum()) > 0
+
+
+def _walk_equal_plain(bvh, o, d, t_cap, any_hit):
+    """One walk kernel launch == the plain walk on (t, slot) exactly."""
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
+    launches = bw.bvh_walk.launches
+    t, slot = bw.bvh_walk(bvh, o, d, t_cap, any_hit)
+    torch.cuda.synchronize()
+    assert bw.bvh_walk.launches == launches + (1 if o.shape[0] else 0)
+    tp, slot_p, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
+    assert torch.equal(t, tp) and torch.equal(slot.long(), slot_p)
+    return t, slot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_bvh_walk_after_refit_equal_plain(cuda_device, any_hit):
+    """The walk on ``Scene.with_refit`` after the vertices moved equals the
+    plain walk on the refit BVH: the kernel's packed records of the old
+    BVH (packed and kept by the first call) are not reused."""
+    from prismarine_core_tpu_torch.models import procedural
+    dev = cuda_device
+    scene = procedural.make_hall_scene(target_tris=3000, device=dev)
+    o, d, t_cap = _hall_rays(4096, 51, dev)
+    t0, _ = _walk_equal_plain(scene.bvh, o, d, t_cap, any_hit)
+    g = torch.Generator(device=dev).manual_seed(3)
+    jit = 0.3 * torch.randn(scene.triangles.v0.shape, generator=g,
+                            device=dev)
+    moved = dataclasses.replace(scene.triangles, v0=scene.triangles.v0 + jit,
+                                v1=scene.triangles.v1 + jit,
+                                v2=scene.triangles.v2 + jit)
+    refit = dataclasses.replace(scene, triangles=moved).with_refit()
+    t1, _ = _walk_equal_plain(refit.bvh, o, d, t_cap, any_hit)
+    assert not torch.equal(t0, t1)
+    # an in-place write to the walked BVH's vertices is seen as well
+    refit.bvh.tv0.add_(0.05)
+    _walk_equal_plain(refit.bvh, o, d, t_cap, any_hit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_bvh_walk_dead_lanes_equal_plain(cuda_device, any_hit):
+    """A batch whose dead lanes (cap 0 and -0.0, 90% of them) end before
+    their first step: (t_cap, -1) bit for bit, the live lanes as the
+    plain walk."""
+    bvh, o, d, t_cap = _walk_case("hall-karras", cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    u = torch.rand(t_cap.shape, generator=g, device=cuda_device)
+    t_cap = torch.where(u < 0.45, 0.0, torch.where(u < 0.9, -0.0, t_cap))
+    t, slot = _walk_equal_plain(bvh, o, d, t_cap, any_hit)
+    dead = u < 0.9
+    assert torch.equal(t[dead].view(torch.int32),
+                       t_cap[dead].view(torch.int32))
+    assert bool((slot[dead] == -1).all()) and int((slot >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("knobs", [dict(chunk=1024), dict(sort=True),
+                                   dict(chunk=512, sort=True)],
+                         ids=["chunked", "sorted", "sorted-chunked"])
+def test_bvh_walk_chunked_sorted_equal_plain(cuda_device, knobs, any_hit):
+    """``_run_traversal`` in chunks (``traverse_chunk``) and on
+    coherence-sorted rays (``sort_rays``) on the kernel equals the plain
+    walk on the whole batch, one launch a chunk."""
+    from prismarine_core_tpu_torch.accel import traverse as tr
+    from prismarine_core_tpu_torch.ops import bvh_walk as bw
+    bvh, o, d, t_cap = _walk_case("hall-median", cuda_device)
+    t_cap = torch.where(torch.arange(t_cap.shape[0], device=cuda_device)
+                        % 3 == 0, 0.0, t_cap)
+    launches = bw.bvh_walk.launches
+    t, slot = tr._run_traversal(bvh, o, d, t_cap, any_hit, **knobs)
+    torch.cuda.synchronize()
+    assert bw.bvh_walk.launches - launches == o.shape[0] // knobs.get(
+        "chunk", o.shape[0])
+    tp, slot_p, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
+    assert torch.equal(t, tp) and torch.equal(slot.long(), slot_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("n_rays", [0, 1, 31, 33, 127, 129, 4099, 524_291])
+def test_bvh_walk_ragged_counts_equal_plain(cuda_device, n_rays, any_hit):
+    """Ray counts that are no multiple of the warp (32) or the block
+    (128), none at all, and more rays than the card holds lanes (every
+    lane refilled many times) equal the plain walk."""
+    from prismarine_core_tpu_torch.models import procedural
+    dev = cuda_device
+    scene = procedural.make_hall_scene(target_tris=3000, device=dev)
+    o, d, t_cap = (x[:n_rays].contiguous() for x in _hall_rays(
+        max(n_rays, 1), 55, dev, live_frac=0.8))
+    t, slot = _walk_equal_plain(scene.bvh, o, d, t_cap, any_hit)
+    assert t.shape == slot.shape == (n_rays,)
+    if n_rays > 4096:
         assert int((slot >= 0).sum()) > 0
 
 
