@@ -1,0 +1,7 @@
+"""Percent of the traced frames' wall time in which no device op ran."""
+
+
+def read(trace):
+    if trace.job != "frames" or not trace.ops:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)

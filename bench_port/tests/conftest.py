@@ -1,0 +1,9 @@
+"""The benchmark's tests: ``python -m pytest bench_port/tests -q`` from the
+repository root (the card's tests, marked ``gpu``, skip without one)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
