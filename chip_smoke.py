@@ -958,7 +958,7 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
     profiled frame (under the profiler ranges that ``ranges()`` opens, if
     given)."""
     import torch
-    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.utils.profiling import counts
     from prismarine_core_tpu_torch.render.integrator import (
         render_with_samples)
 
@@ -966,14 +966,14 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
 
     # the main-path run: counters from 0, read right after
     read = zero_launches()
-    syncs0 = pk.compact_pairs.host_syncs
+    syncs0 = counts["pc.sync.compact"]
     t0 = time.perf_counter()
     img, stats = render_with_samples(scene, cam, cfg, cam_s, bounce_s,
                                      with_stats=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = read()
-    compactions = pk.compact_pairs.host_syncs - syncs0
+    compactions = counts["pc.sync.compact"] - syncs0
     log(f"[{tag}] first frame {first_s:.3f} s; launches {launches}; "
         f"{compactions} pair compactions")
     for k, n in launches.items():
@@ -1056,18 +1056,19 @@ def phase_parity(scene, cam, cfg, img, samples, tag="parity"):
     return image_gate(img, ref, tag)
 
 
+#: the kernels whose launches the phases count (their ``pc.kernel.<name>``
+#: spans)
+KERNELS = ("block_cull", "pair_cull", "sb_intersect", "sb_intersect_mt2",
+           "sb_intersect_mxu", "bvh_walk")
+
+
 def zero_launches():
-    """Every kernel wrapper's launch count, set to 0; returns a reader."""
-    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
-    from prismarine_core_tpu_torch.ops import bvh_walk as bw
-    wrappers = {"block_cull": cull.block_cull, "pair_cull": cull.pair_cull,
-                "sb_intersect": si.sb_intersect,
-                "sb_intersect_mt2": si.sb_intersect_mt2,
-                "sb_intersect_mxu": si.sb_intersect_mxu,
-                "bvh_walk": bw.bvh_walk}
-    for w in wrappers.values():
-        w.launches = 0
-    return lambda: {k: w.launches for k, w in wrappers.items()}
+    """A reader of every kernel's launches since this call (the counts of
+    its ``pc.kernel.<name>`` span)."""
+    from prismarine_core_tpu_torch.utils.profiling import counts
+    start = {k: counts[f"pc.kernel.{k}"] for k in KERNELS}
+    return lambda: {k: counts[f"pc.kernel.{k}"] - n
+                    for k, n in start.items()}
 
 
 def phase_frame_mt2(scene, cam, cfg, img, samples, n_frames=3):
@@ -1801,6 +1802,7 @@ def phase_rounds(scene, cam, cfg, dev):
     event times against "two_round" / "single" in alternating turns."""
     import torch
     from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.utils.profiling import counts
     from prismarine_core_tpu_torch.render.integrator import (
         _pallas_kwargs, make_bounce_step)
     t_phase = time.perf_counter()
@@ -1840,11 +1842,11 @@ def phase_rounds(scene, cam, cfg, dev):
     for label, fn in (("closest", closest), ("shadow", shadow)):
         for stale in (False, True):
             tag = f"{label} rounds{' stale' if stale else ''}"
-            syncs0 = pk.compact_pairs.host_syncs
+            syncs0 = counts["pc.sync.compact"]
             with recorded_calls() as calls:
                 res = fn("rounds", stale)
             torch.cuda.synchronize()
-            compactions = pk.compact_pairs.host_syncs - syncs0
+            compactions = counts["pc.sync.compact"] - syncs0
             detected = sum((host_syncs(lambda: fn("rounds", stale))
                             - host_syncs(lambda: None)).values())
             pairs = [int(a[3]) for a in calls["sb_intersect"]]
@@ -2487,7 +2489,7 @@ def phase_mesh(scene, cam, cfg, dev, img, samples):
     parameter's update, v0, v1 and v2 moved and finite, sb_intersect_mxu
     launched."""
     import torch
-    from prismarine_core_tpu_torch.accel import packet as pk
+    from prismarine_core_tpu_torch.utils.profiling import counts
     from prismarine_core_tpu_torch.models.procedural import (
         make_hall_scene)
     from prismarine_core_tpu_torch.ops.sampling import (
@@ -2564,14 +2566,14 @@ def phase_mesh(scene, cam, cfg, dev, img, samples):
     renderer = make_sharded_renderer(mesh, cfg_cs)
     torch.cuda.reset_peak_memory_stats(dev)
     read = zero_launches()
-    syncs0 = pk.compact_pairs.host_syncs
+    syncs0 = counts["pc.sync.compact"]
     t0 = time.perf_counter()
     big = renderer(dhall, cam, *big_s)
     torch.cuda.synchronize()
     sharded_s = time.perf_counter() - t0
     launches = read()
     peak = torch.cuda.max_memory_allocated(dev)
-    compactions = pk.compact_pairs.host_syncs - syncs0
+    compactions = counts["pc.sync.compact"] - syncs0
     require(big.shape == (BIG_H, BIG_W, 3), f"{tag}: shape {big.shape}")
     require(bool(torch.isfinite(big).all()), f"{tag}: non-finite image")
     require(float(big.std()) > 0.0 and float(big.mean()) > 1e-2,

@@ -46,7 +46,7 @@ The JAX path pads pair lists to static lengths, aligns them to the TPU
 kernel's pairs-per-step and runs them in while-loop windows (its
 ``_compact_*`` helpers are TPU-aligned layouts of ``compact_pairs``'s
 function); here lists have their exact length (``nonzero``, one host sync
-per compaction, counted in ``compact_pairs.host_syncs``) and each runs in
+per compaction, the span ``pc.sync.compact``) and each runs in
 one launch per kernel.  No gradient flows through the query: the entry
 points detach every query input (the JAX package's ``stop_gradient``),
 and ``_reeval_hit`` re-evaluates the winning triangle differentiably from
@@ -72,6 +72,7 @@ from prismarine_core_tpu_torch.ops.sb_intersect import (
     sb_intersect_mxu)
 from prismarine_core_tpu_torch.utils.config import INF_DIST, check_query_knobs
 from prismarine_core_tpu_torch.utils.math import cross, safe_rcp, take_rows
+from prismarine_core_tpu_torch.utils.profiling import span, spanned
 
 #: default per-round budget of "two_round" and "rounds": each tile's K
 #: nearest (remaining) superblocks a round
@@ -230,7 +231,8 @@ def _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap, order=None,
         raise ValueError(f"order={order!r}: a (perm, inv_perm) pair, None "
                          "or 'identity'")
     if order is None:
-        order = _coherence_perm(root_lo, root_hi, o, d, t_cap, mode)
+        with span("pc.sort"):
+            order = _coherence_perm(root_lo, root_hi, o, d, t_cap, mode)
     nt = -(-r // TILE)
     rays = torch.zeros(((nt + 1) * TILE, RAY_COLS), dtype=torch.float32,
                        device=dev)
@@ -262,10 +264,10 @@ def compact_pairs(mask, cols=None):
     pair_sb, n_real) as i32 tensors, in row-major order of the mask.  The
     superblock of entry (t, c) is ``c``, or ``cols[t, c]`` when given
     (the round-1 top-K table).  ``torch.nonzero`` sizes the list: one
-    host sync, counted in ``compact_pairs.host_syncs``."""
+    host sync, the span ``pc.sync.compact``."""
     n_real = mask.sum().to(torch.int32)
-    idx = torch.nonzero(mask.reshape(-1))[:, 0]
-    compact_pairs.host_syncs += 1
+    with span("pc.sync.compact"):
+        idx = torch.nonzero(mask.reshape(-1))[:, 0]
     width = mask.shape[1]
     pair_tile = (idx // width).to(torch.int32)
     if cols is None:
@@ -273,9 +275,6 @@ def compact_pairs(mask, cols=None):
     else:
         pair_sb = cols.reshape(-1)[idx].to(torch.int32)
     return pair_tile, pair_sb, n_real
-
-
-compact_pairs.host_syncs = 0
 
 
 def _per_ray_tile_overlap(ot, inv, tct, box_lo, box_hi, chunk: int = 32,
@@ -566,6 +565,7 @@ def _run_packet(root_lo, root_hi, ps: PacketSet, o, d, t_cap):
     return _unsorted(t, r, order), _unsorted(slot, r, order)
 
 
+@spanned("pc.reeval")
 def _reeval_hit(bvh, soup, o, d, slot) -> Hit:
     """Re-evaluate the winning triangle of each ray (barycentrics, t):
     differentiable in ``soup.v0/v1/v2`` and in ``o`` and ``d``; the slot

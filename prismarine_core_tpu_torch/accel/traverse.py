@@ -30,6 +30,7 @@ from prismarine_core_tpu_torch.ops.bvh_walk import (  # noqa: F401
 from prismarine_core_tpu_torch.ops.intersect import Hit, moller_trumbore
 from prismarine_core_tpu_torch.ops.morton import morton30
 from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
+from prismarine_core_tpu_torch.utils.profiling import span
 
 
 def _traverse(bvh, o, d, t_cap, any_hit: bool):
@@ -82,9 +83,10 @@ def _run_traversal(bvh, o, d, t_cap, any_hit: bool, chunk: int = 0,
     slot i32[R]) in the caller's ray order."""
     r = o.shape[0]
     if sort:
-        perm = torch.sort(_ray_sort_keys(bvh, o, d), stable=True)[1]
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(r, device=perm.device)
+        with span("pc.sort"):
+            perm = torch.sort(_ray_sort_keys(bvh, o, d), stable=True)[1]
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(r, device=perm.device)
         o, d, t_cap = o[perm], d[perm], t_cap[perm]
     o, d, t_cap = o.contiguous(), d.contiguous(), t_cap.contiguous()
     if chunk and r > chunk and r % chunk == 0:

@@ -34,6 +34,7 @@ from prismarine_core_tpu_torch import _build
 from prismarine_core_tpu_torch._build import check_tensor
 from prismarine_core_tpu_torch.ops.intersect import moller_trumbore
 from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
+from prismarine_core_tpu_torch.utils.profiling import span
 
 #: lockstep steps between two host checks of the plain walk
 UNROLL = 8
@@ -209,14 +210,11 @@ def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
         return out_t, out_slot
     nodes, slots = walk_records(bvh)
     next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
-    code = _build.library().bvh_walk_launch(
-        nodes.data_ptr(), slots.data_ptr(), o.data_ptr(), d.data_ptr(),
-        t_cap.data_ptr(), out_t.data_ptr(), out_slot.data_ptr(),
-        next_ray.data_ptr(), r, n, bvh.leaf_size, int(any_hit),
-        _build.stream_ptr(dev))
+    with span("pc.kernel.bvh_walk"):
+        code = _build.library().bvh_walk_launch(
+            nodes.data_ptr(), slots.data_ptr(), o.data_ptr(), d.data_ptr(),
+            t_cap.data_ptr(), out_t.data_ptr(), out_slot.data_ptr(),
+            next_ray.data_ptr(), r, n, bvh.leaf_size, int(any_hit),
+            _build.stream_ptr(dev))
     _build.check(code, "bvh_walk_launch")
-    bvh_walk.launches += 1
     return out_t, out_slot
-
-
-bvh_walk.launches = 0

@@ -12,8 +12,9 @@ per (tile, superblock) pair an 8-bit mask, bit k set when some ray of the
 tile passes block ``sb*8 + k``; 0 for pairs >= ``n_real``.
 
 Each wrapper runs its plain PyTorch version when its tensors lie on the
-CPU, and launches the CUDA kernel when they lie on a card; it counts its
-kernel launches in ``.launches``.  The plain versions use the kernels'
+CPU, and launches the CUDA kernel when they lie on a card, inside the
+span ``pc.kernel.<name>`` (``utils/profiling.py``: its count is the
+kernel's launches).  The plain versions use the kernels'
 operation order and are exact references for them.
 
 Both kernels first reject whole (tile, box) entries with an interval test
@@ -37,6 +38,7 @@ from prismarine_core_tpu_torch.ops.sb_intersect import (
     RAY_COLS, RC_IVX, RC_IVY, RC_IVZ, RC_OX, RC_OY, RC_OZ, RC_TCAP, SB,
     TILE, as_count)
 from prismarine_core_tpu_torch.utils.config import INF_DIST
+from prismarine_core_tpu_torch.utils.profiling import span
 
 BOX_ROWS = 8     # lo_xyz hi_xyz pad pad
 
@@ -234,15 +236,12 @@ def block_cull(rays, box_rows, n_live):
     _check_rows_aligned(rays)
     nt = n_rows // TILE - 1
     out = torch.empty((nt, nb_pad), dtype=torch.float32, device=rays.device)
-    code = _build.library().block_cull_launch(
-        rays.data_ptr(), box_rows.data_ptr(), n_live.data_ptr(),
-        out.data_ptr(), nt, nb_pad, _build.stream_ptr(rays.device))
+    with span("pc.kernel.block_cull"):
+        code = _build.library().block_cull_launch(
+            rays.data_ptr(), box_rows.data_ptr(), n_live.data_ptr(),
+            out.data_ptr(), nt, nb_pad, _build.stream_ptr(rays.device))
     _build.check(code, "block_cull")
-    block_cull.launches += 1
     return out
-
-
-block_cull.launches = 0
 
 
 def derive_pair_tables(tn_blk, nsb: int):
@@ -319,13 +318,10 @@ def pair_cull(pair_tile, pair_sb, n_real, rays, sb_boxes):
     out = torch.empty((n_pairs,), dtype=torch.int32, device=dev)
     if n_pairs == 0:
         return out
-    code = _build.library().pair_cull_launch(
-        pair_tile.data_ptr(), pair_sb.data_ptr(), n_real.data_ptr(),
-        rays.data_ptr(), sb_boxes.data_ptr(), out.data_ptr(), n_pairs,
-        _build.stream_ptr(dev))
+    with span("pc.kernel.pair_cull"):
+        code = _build.library().pair_cull_launch(
+            pair_tile.data_ptr(), pair_sb.data_ptr(), n_real.data_ptr(),
+            rays.data_ptr(), sb_boxes.data_ptr(), out.data_ptr(), n_pairs,
+            _build.stream_ptr(dev))
     _build.check(code, "pair_cull")
-    pair_cull.launches += 1
     return out
-
-
-pair_cull.launches = 0

@@ -48,6 +48,7 @@ from prismarine_core_tpu_torch import _build
 from prismarine_core_tpu_torch._build import check_tensor
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
+from prismarine_core_tpu_torch.utils.profiling import span
 
 TILE = 128       # rays per tile
 BLOCK = 128      # triangle slots per sub-block
@@ -478,7 +479,8 @@ def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
             planes, prior):
     """Launch one pair-intersector kernel on the walk (C entry point
     ``entry``: plan, key init, walk, decode) after checking its
-    arguments."""
+    arguments, inside the span ``pc.kernel.<kernel>`` (``entry`` less
+    its ``_launch``)."""
     tile_start = _check(plane_w, pair_tile, pair_sb, pair_mask, n_real,
                         rays, planes, prior)
     lib = _build.library()
@@ -490,15 +492,16 @@ def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
                             dtype=torch.int32, device=dev)
     out_t = torch.empty((n_rows,), dtype=torch.float32, device=dev)
     out_slot = torch.empty((n_rows,), dtype=torch.int32, device=dev)
-    code = getattr(lib, entry)(
-        tile_start.data_ptr(), pair_tile.data_ptr(), pair_sb.data_ptr(),
-        pair_mask.data_ptr(), n_real.data_ptr(), rays.data_ptr(),
-        planes.data_ptr(),
-        prior[0].data_ptr() if prior is not None else None,
-        prior[1].data_ptr() if prior is not None else None,
-        keys.data_ptr(), csum.data_ptr(), unit_pair.data_ptr(),
-        out_t.data_ptr(), out_slot.data_ptr(), n_rows, n_pairs, WALK_UNIT,
-        _build.stream_ptr(dev))
+    with span("pc.kernel." + entry.removesuffix("_launch")):
+        code = getattr(lib, entry)(
+            tile_start.data_ptr(), pair_tile.data_ptr(), pair_sb.data_ptr(),
+            pair_mask.data_ptr(), n_real.data_ptr(), rays.data_ptr(),
+            planes.data_ptr(),
+            prior[0].data_ptr() if prior is not None else None,
+            prior[1].data_ptr() if prior is not None else None,
+            keys.data_ptr(), csum.data_ptr(), unit_pair.data_ptr(),
+            out_t.data_ptr(), out_slot.data_ptr(), n_rows, n_pairs,
+            WALK_UNIT, _build.stream_ptr(dev))
     _build.check(code, entry)
     return out_t, out_slot
 
@@ -513,10 +516,8 @@ def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
     if rays.device.type == "cpu":
         return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
                                   rays, planes, prior)
-    out = _launch("sb_intersect_launch", SB * BLOCK, pair_tile, pair_sb,
-                  pair_mask, n_real, rays, planes, prior)
-    sb_intersect.launches += 1
-    return out
+    return _launch("sb_intersect_launch", SB * BLOCK, pair_tile, pair_sb,
+                   pair_mask, n_real, rays, planes, prior)
 
 
 def sb_intersect_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
@@ -526,10 +527,8 @@ def sb_intersect_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
     if rays.device.type == "cpu":
         return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
                                   rays, planes, prior)
-    out = _launch("sb_intersect_mt2_launch", SB * BLOCK, pair_tile, pair_sb,
-                  pair_mask, n_real, rays, planes, prior)
-    sb_intersect_mt2.launches += 1
-    return out
+    return _launch("sb_intersect_mt2_launch", SB * BLOCK, pair_tile,
+                   pair_sb, pair_mask, n_real, rays, planes, prior)
 
 
 def sb_intersect_mxu(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
@@ -540,12 +539,6 @@ def sb_intersect_mxu(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
     if rays.device.type == "cpu":
         return sb_intersect_mxu_plain(pair_tile, pair_sb, pair_mask, n_real,
                                       rays, planes, prior)
-    out = _launch("sb_intersect_mxu_launch", SB * MXU_Q * BLOCK, pair_tile,
-                  pair_sb, pair_mask, n_real, rays, planes, prior)
-    sb_intersect_mxu.launches += 1
-    return out
-
-
-sb_intersect.launches = 0
-sb_intersect_mt2.launches = 0
-sb_intersect_mxu.launches = 0
+    return _launch("sb_intersect_mxu_launch", SB * MXU_Q * BLOCK,
+                   pair_tile, pair_sb, pair_mask, n_real, rays, planes,
+                   prior)

@@ -50,6 +50,7 @@ from prismarine_core_tpu_torch.ops.intersect import (
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import (
     GAP, INF_DIST, RenderConfig, check_supported)
+from prismarine_core_tpu_torch.utils.profiling import span, spanned
 
 
 def _pallas_kwargs(cfg: RenderConfig, any_hit: bool) -> dict:
@@ -82,6 +83,7 @@ def _need_packets(scene):
                          "scene.with_bvh()")
 
 
+@spanned("pc.query.closest")
 def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
                 with_order: bool = False, order=None,
                 with_surface: bool = False):
@@ -138,6 +140,7 @@ def closest_hit(scene, o, d, cfg: RenderConfig, t_cap=None,
     return (hit, order) if with_order else hit
 
 
+@spanned("pc.query.shadow")
 def occluded(scene, o, d, t_max, cfg: RenderConfig, order=None):
     """Any-hit query through the configured intersector."""
     if cfg.intersector == "brute":
@@ -173,6 +176,7 @@ def occluded(scene, o, d, t_max, cfg: RenderConfig, order=None):
     raise AssertionError("unreachable")
 
 
+@spanned("pc.surface")
 def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
                          carried: dict | None = None):
     """Per-ray surface fields at the hit (garbage where missed — callers
@@ -267,6 +271,7 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
     )
 
 
+@spanned("pc.nee")
 def _nee_contribution(scene, cfg: RenderConfig, p, n, ns_raw, diffuse_beta,
                       u, order=None):
     """Next-event estimation toward one uniformly chosen sphere light: a
@@ -300,6 +305,7 @@ def _nee_contribution(scene, cfg: RenderConfig, p, n, ns_raw, diffuse_beta,
     return contrib, need.sum(dtype=torch.int32)
 
 
+@spanned("pc.nee")
 def _env_nee_contribution(scene, cfg: RenderConfig, p, n, diffuse_beta, u,
                           order=None):
     """NEE toward the environment's bright texels (``cfg.env_nee``): one
@@ -331,8 +337,10 @@ def surface_kinds(scene):
     """The ``kinds`` argument of ``_interpolate_surface`` for ``scene``:
     None on the texture-less stub stack, else the materials'
     ``kinds_bound`` (one host sync)."""
-    return (None if getattr(scene.textures, "stub", False)
-            else scene.materials.kinds_bound)
+    if getattr(scene.textures, "stub", False):
+        return None
+    with span("pc.sync.kinds"):
+        return scene.materials.kinds_bound
 
 
 def make_bounce_step(scene, cfg: RenderConfig, fixed_order=None):
@@ -346,6 +354,7 @@ def make_bounce_step(scene, cfg: RenderConfig, fixed_order=None):
     of ``reuse_bounce_order``; "pallas" only)."""
     kinds = surface_kinds(scene)
 
+    @spanned("pc.bounce")
     def step(carry, u):
         (o, d, beta, radiance, alive, prev_pdf, miss_dir, miss_beta,
          miss_pdf, bounce_i) = carry
@@ -467,6 +476,7 @@ def make_bounce_step(scene, cfg: RenderConfig, fixed_order=None):
     return step
 
 
+@spanned("pc.env")
 def _env_pickup(scene, cfg: RenderConfig, radiance, miss_dir, miss_beta,
                 miss_pdf):
     """The deferred miss-shading env fetch: one bilinear lookup for every
@@ -539,10 +549,11 @@ def trace(scene, cfg: RenderConfig, o, d, bounce_samples, active=None):
             if reuse:
                 from prismarine_core_tpu_torch.accel import packet as pk
                 o1, d1 = carry[0].detach(), carry[1].detach()
-                order = pk._coherence_perm(
-                    scene.bvh.lo[0].detach(), scene.bvh.hi[0].detach(), o1,
-                    d1, torch.ones(o1.shape[0], device=o1.device),
-                    cfg.sort_mode)
+                with span("pc.sort"):
+                    order = pk._coherence_perm(
+                        scene.bvh.lo[0].detach(), scene.bvh.hi[0].detach(),
+                        o1, d1, torch.ones(o1.shape[0], device=o1.device),
+                        cfg.sort_mode)
             step = make_bounce_step(scene, cfg, fixed_order=order)
     _, _, _, radiance, _, _, miss_dir, miss_beta, miss_pdf, _ = carry
     radiance = _env_pickup(scene, cfg, radiance, miss_dir, miss_beta,
@@ -556,6 +567,7 @@ def trace_radiance(scene, cfg: RenderConfig, o, d, bounce_samples,
     return trace(scene, cfg, o, d, bounce_samples, active)[0]
 
 
+@spanned("pc.camera")
 def primary_rays(camera: Camera, cfg: RenderConfig, cam_samples,
                  interlace_stage=0):
     """The frame's camera rays in lane order and their live mask: (o, d
@@ -571,6 +583,7 @@ def primary_rays(camera: Camera, cfg: RenderConfig, cam_samples,
     return o, d, mask.repeat(cfg.spp)
 
 
+@spanned("pc.image")
 def radiance_image(cfg: RenderConfig, radiance) -> torch.Tensor:
     """Lane-order radiance f32[R,3] of ``primary_rays``' lanes as the image
     f32[H,W,3] (mean over spp): an active ``primary_tile_order``'s lanes
@@ -592,9 +605,11 @@ def render_with_samples(scene, camera: Camera, cfg: RenderConfig,
     an active ``primary_tile_order`` the lanes run in 16x8-pixel-tile
     order and the radiance is put back in pixel order once, at the end."""
     check_supported(cfg)
-    o, d, active = primary_rays(camera, cfg, cam_samples, interlace_stage)
-    radiance, stats = trace(scene, cfg, o, d, bounce_samples, active)
-    img = radiance_image(cfg, radiance)
+    with span("pc.frame"):
+        o, d, active = primary_rays(camera, cfg, cam_samples,
+                                    interlace_stage)
+        radiance, stats = trace(scene, cfg, o, d, bounce_samples, active)
+        img = radiance_image(cfg, radiance)
     return (img, stats) if with_stats else img
 
 

@@ -1,21 +1,68 @@
 """Profiling and timing harness.
 
-The counterpart of ``prismarine_core_tpu.utils.profiling``: wall timers
-per stage that synchronise the device of a given tensor before they stop,
-a mean-time helper, and ``torch.profiler`` traces (a chrome trace in the
-log directory) for deep dives.
+The counterpart of ``prismarine_core_tpu.utils.profiling``: the program's
+spans (``span``) and their counts, a mean-time helper, and
+``torch.profiler`` traces (a chrome trace in the log directory) for deep
+dives.
+
+A span names one phase of a frame (``pc.frame``, ``pc.camera``,
+``pc.bounce``, ``pc.query.closest`` ...), one deliberate host sync
+(``pc.sync.<site>``) or one launch of a hand-written kernel
+(``pc.kernel.<name>``).  Every entry adds one to ``counts[name]``, which
+is the port's one count of kernel launches and host syncs; only while a
+profiler records does a span also open a profiler range, so the spans lie
+on the profiler's clock beside the device's kernels and cost one counter
+update and one check otherwise.  The range is an op-scope one
+(``_RecordFunctionFast``), not ``record_function``'s user-scope one: the
+profiler links the kernels launched directly inside it (the port's raw
+launches) to it, and draws no device-side copy of it among the device's
+ops.  To see them:
+
+    with profiling.trace("logdir"):
+        render(scene, camera, cfg, generator)
+
+writes ``logdir/trace.json``, a chrome trace with the ``pc.*`` ranges.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import time
-from collections import defaultdict
 from typing import Callable
 
 import torch
+
+#: entries of each span since the process started
+counts: collections.Counter = collections.Counter()
+#: what ``span`` returns while no profiler records
+_NO_RANGE = contextlib.nullcontext()
+#: the profiler range of a span: an op-scope range (see the module doc)
+_range = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """Context manager around one phase, sync or launch ``name``: counts
+    it, and opens a profiler range while a profiler records.  Its parent
+    is the span open around it."""
+    counts[name] += 1
+    if torch.autograd._profiler_enabled():
+        return _range(name)
+    return _NO_RANGE
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return run
+    return wrap
 
 
 def _tensors(x):
@@ -43,34 +90,6 @@ def wait_for(x) -> None:
     tuple/list/dict or dataclass of them); a CPU tensor needs no wait."""
     for device in _cuda_devices(x):
         torch.cuda.synchronize(device)
-
-
-class StageTimers:
-    """Accumulating per-stage wall timers (device-synced)."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        """Time the block; ``sync`` (a tensor or a container of them) is
-        waited for before the clock stops."""
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            wait_for(sync)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(),
-                                  key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:24s} {total*1e3:9.1f} ms total  "
-                         f"{total/n*1e3:8.2f} ms/call  x{n}")
-        return "\n".join(lines)
 
 
 def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 3,
@@ -105,8 +124,9 @@ def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 3,
 @contextlib.contextmanager
 def trace(logdir: str):
     """``torch.profiler`` over the block (CPU and, with a card, CUDA
-    activity); the chrome trace is written to ``logdir/trace.json``.
-    Yields the profiler."""
+    activity); the chrome trace, the program's ``pc.*`` spans beside the
+    device's kernels, is written to ``logdir/trace.json``.  Yields the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

@@ -130,17 +130,13 @@ def test_image_writers_match_jax(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    timers = profiling.StageTimers()
     x = torch.ones(8)
-    for _ in range(3):
-        with timers.stage("add", sync=x):
-            x = x + 1
-    assert timers.counts["add"] == 3 and timers.totals["add"] > 0
-    assert "add" in timers.report() and "x3" in timers.report()
     assert profiling.time_fn(torch.add, x, x, warmup=1, iters=2) > 0
     with profiling.trace(str(tmp_path / "trace")):
-        torch.mm(torch.ones(16, 16), torch.ones(16, 16))
-    assert json.loads((tmp_path / "trace" / "trace.json").read_text())
+        with profiling.span("pc.test"):
+            torch.mm(torch.ones(16, 16), torch.ones(16, 16))
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert "pc.test" in {e.get("name") for e in events["traceEvents"]}
 
 
 def test_time_fn_calls_and_waits_for_dataclass_results():

@@ -43,7 +43,6 @@ from prismarine_core_tpu.models import procedural as jproc  # noqa: E402
 from prismarine_core_tpu.models import textures as jtex  # noqa: E402
 from prismarine_core_tpu.ops.sampling import (  # noqa: E402
     make_coherent_sample_arrays)
-from prismarine_core_tpu_torch.accel import packet as tpk  # noqa: E402
 from prismarine_core_tpu_torch.models import procedural as tproc  # noqa: E402
 from prismarine_core_tpu_torch.models import textures as ttex  # noqa: E402
 from prismarine_core_tpu_torch.models.camera import Camera  # noqa: E402
@@ -55,6 +54,7 @@ from prismarine_core_tpu_torch.models.scene import Scene  # noqa: E402
 from prismarine_core_tpu_torch.ops import sampling as smp  # noqa: E402
 from prismarine_core_tpu_torch.render import integrator as tint  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import RenderConfig  # noqa: E402
+from prismarine_core_tpu_torch.utils.profiling import counts  # noqa: E402
 from tests.test_torch_render import (  # noqa: E402
     BENCH_KNOBS, CPU, HALL, assert_image_parity, render_both)
 
@@ -213,11 +213,11 @@ def test_env_nee_bench_slice_matches_jax():
     assert int(tscene.triangles.num_valid()) == 27748
     cfg_kw = dict(width=64, height=48, spp=1, max_bounces=4, env_nee=True,
                   coherent_bounce_sampling=True, **BENCH_KNOBS)
-    syncs0 = tpk.compact_pairs.host_syncs
+    syncs0 = counts["pc.sync.compact"]
     (img, st), (ref, rst) = render_both(
         jscene, tscene, **HALL, cfg_kw=cfg_kw,
         samples=lambda cfg: make_coherent_sample_arrays(
             jax.random.key(0), cfg, block=(8, 16)))
-    assert tpk.compact_pairs.host_syncs - syncs0 == 4 * 4
+    assert counts["pc.sync.compact"] - syncs0 == 4 * 4
     assert img.mean() > 1e-2
     assert_image_parity(img, ref, st, rst)

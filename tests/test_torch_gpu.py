@@ -23,6 +23,7 @@ from prismarine_core_tpu_torch.models.geometry import TriangleSoup  # noqa: E402
 from prismarine_core_tpu_torch.ops import cull  # noqa: E402
 from prismarine_core_tpu_torch.ops import sb_intersect as si  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import INF_DIST  # noqa: E402
+from prismarine_core_tpu_torch.utils.profiling import counts  # noqa: E402
 
 TILE = 128
 
@@ -201,9 +202,9 @@ def test_backward_on_the_card(cuda_device, monkeypatch):
         g = torch.autograd.grad(img.square().mean(), list(leaves.values()))
         return dict(zip(leaves, g))
 
-    launches = si.sb_intersect_mxu.launches
+    launches = counts["pc.kernel.sb_intersect_mxu"]
     g_kernels = grads()
-    assert si.sb_intersect_mxu.launches > launches
+    assert counts["pc.kernel.sb_intersect_mxu"] > launches
     monkeypatch.setattr(pk, "block_cull", cull.block_cull_plain)
     monkeypatch.setattr(pk, "pair_cull", cull.pair_cull_plain)
     monkeypatch.setattr(pk, "sb_intersect_mxu", si.sb_intersect_mxu_plain)
@@ -276,9 +277,9 @@ def test_query_equal_plain(cuda_device, strategy, request):
         occ = pk.occluded_pallas(bvh, ps, soup, o, d, 0.5 * t_cap, **kw)
         return hit, occ
 
-    launches = si.sb_intersect.launches
+    launches = counts["pc.kernel.sb_intersect"]
     hit, occ = run()
-    assert si.sb_intersect.launches > launches
+    assert counts["pc.kernel.sb_intersect"] > launches
     request.getfixturevalue("plain_versions")
     hit_p, occ_p = run()
     assert torch.equal(hit.tri, hit_p.tri) and torch.equal(hit.t, hit_p.t)
@@ -420,10 +421,10 @@ def test_hall_query_equal_plain(cuda_device, name, strategy, request):
                                         **kw)
         return h, pk.occluded_pallas(bvh, ps, soup, o, d, 0.5 * t_cap, **kw)
 
-    launches = (cull.block_cull.launches, cull.pair_cull.launches)
+    launches = (counts["pc.kernel.block_cull"], counts["pc.kernel.pair_cull"])
     h, occ = run()
-    assert cull.block_cull.launches > launches[0]
-    assert cull.pair_cull.launches > launches[1]
+    assert counts["pc.kernel.block_cull"] > launches[0]
+    assert counts["pc.kernel.pair_cull"] > launches[1]
     request.getfixturevalue("plain_versions")
     h_p, occ_p = run()
     assert torch.equal(h.tri, h_p.tri) and torch.equal(h.t, h_p.t)
@@ -458,13 +459,13 @@ def test_default_cull_query_equal_plain(cuda_device, knobs, request):
                                         **kw)
         return h, pk.occluded_pallas(bvh, ps, soup, o, d, 0.5 * t_cap, **kw)
 
-    launches = (cull.block_cull.launches, cull.pair_cull.launches)
+    launches = (counts["pc.kernel.block_cull"], counts["pc.kernel.pair_cull"])
     h, occ = run()
-    assert cull.block_cull.launches > launches[0]
+    assert counts["pc.kernel.block_cull"] > launches[0]
     # the any-hit query takes "rounds" unless a strategy is given
     refresh = knobs.get("strategy", "rounds") == "rounds" and not knobs.get(
         "stale_round_masks")
-    assert (cull.pair_cull.launches > launches[1]) == refresh
+    assert (counts["pc.kernel.pair_cull"] > launches[1]) == refresh
     h2, occ2 = run(cull_impl="pallas2")
     assert torch.equal(h.t, h2.t) and torch.equal(occ, occ2)
     request.getfixturevalue("plain_versions")
@@ -519,12 +520,12 @@ def test_frame_equal_plain(cuda_device, case, request):
     knobs = dict(env_nee=case == "env_nee")
     if case.endswith("bicubic"):
         knobs["texture_filter"] = "bicubic"
-    launches = si.sb_intersect.launches
-    syncs = pk.compact_pairs.host_syncs
+    launches = counts["pc.kernel.sb_intersect"]
+    syncs = counts["pc.sync.compact"]
     img, stats = _bench_frame(dev, scene, **knobs)
-    assert si.sb_intersect.launches - launches == (
+    assert counts["pc.kernel.sb_intersect"] - launches == (
         16 if knobs["env_nee"] else 12)
-    assert pk.compact_pairs.host_syncs - syncs == (
+    assert counts["pc.sync.compact"] - syncs == (
         16 if knobs["env_nee"] else 12)
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-2
     request.getfixturevalue("plain_versions")
@@ -637,10 +638,10 @@ def test_bvh_walk_equal_plain(cuda_device, case, any_hit):
     on (t, slot) exactly, one launch counted."""
     from prismarine_core_tpu_torch.ops import bvh_walk as bw
     bvh, o, d, t_cap = _walk_case(case, cuda_device)
-    launches = bw.bvh_walk.launches
+    launches = counts["pc.kernel.bvh_walk"]
     t, slot = bw.bvh_walk(bvh, o, d, t_cap, any_hit)
     torch.cuda.synchronize()
-    assert bw.bvh_walk.launches == launches + 1
+    assert counts["pc.kernel.bvh_walk"] == launches + 1
     tp, slot_p, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
     assert torch.equal(t, tp) and torch.equal(slot.long(), slot_p)
     if case not in ("t-cap-0", "beyond-inf"):
@@ -650,10 +651,10 @@ def test_bvh_walk_equal_plain(cuda_device, case, any_hit):
 def _walk_equal_plain(bvh, o, d, t_cap, any_hit):
     """One walk kernel launch == the plain walk on (t, slot) exactly."""
     from prismarine_core_tpu_torch.ops import bvh_walk as bw
-    launches = bw.bvh_walk.launches
+    launches = counts["pc.kernel.bvh_walk"]
     t, slot = bw.bvh_walk(bvh, o, d, t_cap, any_hit)
     torch.cuda.synchronize()
-    assert bw.bvh_walk.launches == launches + (1 if o.shape[0] else 0)
+    assert counts["pc.kernel.bvh_walk"] == launches + (1 if o.shape[0] else 0)
     tp, slot_p, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
     assert torch.equal(t, tp) and torch.equal(slot.long(), slot_p)
     return t, slot
@@ -715,10 +716,10 @@ def test_bvh_walk_chunked_sorted_equal_plain(cuda_device, knobs, any_hit):
     bvh, o, d, t_cap = _walk_case("hall-median", cuda_device)
     t_cap = torch.where(torch.arange(t_cap.shape[0], device=cuda_device)
                         % 3 == 0, 0.0, t_cap)
-    launches = bw.bvh_walk.launches
+    launches = counts["pc.kernel.bvh_walk"]
     t, slot = tr._run_traversal(bvh, o, d, t_cap, any_hit, **knobs)
     torch.cuda.synchronize()
-    assert bw.bvh_walk.launches - launches == o.shape[0] // knobs.get(
+    assert counts["pc.kernel.bvh_walk"] - launches == o.shape[0] // knobs.get(
         "chunk", o.shape[0])
     tp, slot_p, _, _ = bw.bvh_walk_plain(bvh, o, d, t_cap, any_hit)
     assert torch.equal(t, tp) and torch.equal(slot.long(), slot_p)
@@ -766,17 +767,17 @@ def test_bvh_cornell_frame_equal_plain(cuda_device, knobs, monkeypatch):
     assert cfg.intersector == "bvh"
     samples = make_sample_arrays(torch.Generator(device=dev).manual_seed(0),
                                  cfg.n_rays, cfg.max_bounces)
-    launches = bw.bvh_walk.launches
+    launches = counts["pc.kernel.bvh_walk"]
     img, stats = render_with_samples(scene, cam, cfg, *samples,
                                      with_stats=True)
-    n = bw.bvh_walk.launches - launches
+    n = counts["pc.kernel.bvh_walk"] - launches
     assert n == 8 * (4 if knobs else 1)
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-2
 
     monkeypatch.setattr(traverse, "bvh_walk", bw.bvh_walk_plain_hits)
     img_p, stats_p = render_with_samples(scene, cam, cfg, *samples,
                                          with_stats=True)
-    assert bw.bvh_walk.launches - launches == n
+    assert counts["pc.kernel.bvh_walk"] - launches == n
     assert torch.equal(img, img_p) and torch.equal(stats, stats_p)
 
 
@@ -836,9 +837,9 @@ def test_edge_gradients_equal_plain_walk(cuda_device, monkeypatch):
         return img.detach(), torch.autograd.grad(
             (img * w).sum(), [params[k] for k in ("v0", "v1", "v2")])
 
-    launches = bw.bvh_walk.launches
+    launches = counts["pc.kernel.bvh_walk"]
     img, g = grads()
-    assert bw.bvh_walk.launches - launches == 44
+    assert counts["pc.kernel.bvh_walk"] - launches == 44
     assert torch.equal(img, render_with_samples(scene, cam, cfg, cam_s,
                                                 bounce_s))
 
@@ -888,10 +889,10 @@ def test_sharded_query_on_a_card_mesh(cuda_device, mp):
     o, d, t_cap = _rays(2048, 22, cuda_device, t_far=25.0)
     mesh = _card_mesh(cuda_device, mp, mp)
     sp = tsi.shard_packets(tsi.build_sharded_packets(bvh, mp), mesh)
-    launches = si.sb_intersect.launches
+    launches = counts["pc.kernel.sb_intersect"]
     hit = tsi.sharded_intersect_closest(mesh, sp, o, d)
     occ = tsi.sharded_occluded(mesh, sp, o, d, t_cap)
-    assert si.sb_intersect.launches - launches >= 2 * mp
+    assert counts["pc.kernel.sb_intersect"] - launches >= 2 * mp
     cpu = torch.device("cpu")
     cmesh = _card_mesh(cpu, mp, mp)
     csp = tsi.shard_packets(tsi.build_sharded_packets(to_device(bvh, cpu),
@@ -943,9 +944,9 @@ def test_sharded_frame_and_train_step_on_a_card_mesh(cuda_device):
     step = make_train_step(mesh, cfg_sh.replace(kernel_form="mxu"))
     dscene = tsi.distribute_scene(scene, mesh, shard_soup=False)
     params = init_params(dscene)
-    launches = si.sb_intersect_mxu.launches
+    launches = counts["pc.kernel.sb_intersect_mxu"]
     new, loss = step(params, dscene, cam, cam_s, bounce_s, ref + 0.05)
-    assert si.sb_intersect_mxu.launches > launches
+    assert counts["pc.kernel.sb_intersect_mxu"] > launches
     assert bool(torch.isfinite(loss))
     for k in ("v0", "v1", "v2"):
         dv = new[k] - params[k]

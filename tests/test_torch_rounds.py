@@ -27,6 +27,7 @@ from prismarine_core_tpu_torch import interop  # noqa: E402
 from prismarine_core_tpu_torch.accel import packet as tpk  # noqa: E402
 from prismarine_core_tpu_torch.models.scene import (  # noqa: E402
     make_cornell_scene)
+from prismarine_core_tpu_torch.utils.profiling import counts  # noqa: E402
 from tests.test_torch_query import _agree, _hall_rays  # noqa: E402
 from tests.test_torch_scene import jax_scene_arrays  # noqa: E402
 
@@ -54,7 +55,7 @@ def _port_query(hall, any_hit, **kw):
     _, ts, o, d, t_cap, t_max = hall
     args = (ts.bvh, ts.packets, ts.triangles, torch.tensor(np.asarray(o)),
             torch.tensor(np.asarray(d)))
-    before = tpk.compact_pairs.host_syncs
+    before = counts["pc.sync.compact"]
     if any_hit:
         out = tpk.occluded_pallas(*args, torch.tensor(t_max), k_round=K,
                                   cull_impl="pallas2", **kw)
@@ -62,7 +63,7 @@ def _port_query(hall, any_hit, **kw):
         out = tpk.intersect_closest_pallas(*args, t_cap=torch.tensor(t_cap),
                                            k_round=K, cull_impl="pallas2",
                                            **kw)
-    return out, tpk.compact_pairs.host_syncs - before
+    return out, counts["pc.sync.compact"] - before
 
 
 @pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
@@ -128,11 +129,11 @@ def test_rounds_stop_and_small_scenes(hall):
     an unknown strategy raises."""
     _, ts, o, d, _, _ = hall
     to, td = torch.tensor(np.asarray(o)), torch.tensor(np.asarray(d))
-    before = tpk.compact_pairs.host_syncs
+    before = counts["pc.sync.compact"]
     occ = tpk.occluded_pallas(ts.bvh, ts.packets, ts.triangles, to, td,
                               torch.zeros(R), k_round=K)
     assert not occ.any()
-    assert tpk.compact_pairs.host_syncs - before == 2
+    assert counts["pc.sync.compact"] - before == 2
 
     cb = make_cornell_scene(device="cpu")
     assert cb.packets.n_superblocks <= K

@@ -23,8 +23,8 @@ import jax  # noqa: E402
 from prismarine_core_tpu.models import procedural as jproc  # noqa: E402
 from prismarine_core_tpu.ops.sampling import (  # noqa: E402
     make_coherent_sample_arrays)
-from prismarine_core_tpu_torch.accel import packet as tpk  # noqa: E402
 from prismarine_core_tpu_torch.models import procedural as tproc  # noqa: E402
+from prismarine_core_tpu_torch.utils.profiling import counts  # noqa: E402
 from tests.test_torch_render import (  # noqa: E402
     BENCH_KNOBS, HALL, assert_image_parity, render_both)
 
@@ -44,12 +44,12 @@ def test_bench_slice_matches_jax():
 
     cfg_kw = dict(width=64, height=48, spp=1, max_bounces=4,
                   coherent_bounce_sampling=True, **BENCH_KNOBS)
-    syncs0 = tpk.compact_pairs.host_syncs
+    syncs0 = counts["pc.sync.compact"]
     (img, st), (ref, rst) = render_both(
         jscene, tscene, **HALL, cfg_kw=cfg_kw,
         samples=lambda cfg: make_coherent_sample_arrays(
             jax.random.key(0), cfg, block=(8, 16)))
     # one compaction per round: 2 per closest query, 1 per shadow query
-    assert tpk.compact_pairs.host_syncs - syncs0 == 4 * 3
+    assert counts["pc.sync.compact"] - syncs0 == 4 * 3
     assert img.mean() > 1e-2
     assert_image_parity(img, ref, st, rst)
