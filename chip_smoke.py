@@ -257,12 +257,21 @@ Phases (any failure exits non-zero):
                 r5_refit_bench at 100,000 target triangles: build_bvh,
                 refit_bvh and build_packet_set ms under "karras" and
                 "median", and refit_bvh's boxes equal to build_bvh's on
-                the unchanged soup.
+                the unchanged soup;
+ 20. surface  — the surface kernel (csrc/surface.cu, phase_surface) at
+                the bounce-1 hits of bench.py's frame at 4 spp under
+                "bvh" (3,686,400 lanes): every field equal bit for bit to
+                surface_fields_plain's, its time in alternating turns
+                against the plain version's, its bytes bound (12 B read
+                and 84 B written a lane, 19 words of each triangle and 21
+                of each material once) and its share of it, its
+                registers; one 4 spp frame launching it once a bounce.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
-JSON (the five ported kernels and bvh_walk, with their launches on each
-path, the sharded, default-cull and per-process ones included, and
+JSON (the five ported kernels, bvh_walk and surface_fields, with their
+launches on each path, the sharded, default-cull and per-process ones
+included, and
 block_cull's 2,048-box time and bound beside its 256-box ones; and every
 frame's, the step's, the edge path's, the application phase's, the mesh
 phase's, the default cull's, the processes', the knobs' and the examples'
@@ -292,8 +301,10 @@ W, H, BOUNCES = 1280, 720, 4
 #: sanity band of the frame's mean radiance (the full frame's mean is
 #: 0.29-0.35 over sample seeds 0-3 on an H100)
 MEAN_BAND = (0.2, 0.4)
+#: the kernels whose launches the phases count (their ``pc.kernel.<name>``
+#: spans)
 KERNELS = ("block_cull", "pair_cull", "sb_intersect", "sb_intersect_mt2",
-           "sb_intersect_mxu", "bvh_walk")
+           "sb_intersect_mxu", "bvh_walk", "surface")
 #: the kernels of the "mt" frame's packet query
 MT_PATH = ("block_cull", "pair_cull", "sb_intersect")
 MAX_LAUNCHES = 2 * BOUNCES + BOUNCES     # per frame, each kernel
@@ -370,8 +381,8 @@ MP_TIMEOUT = 400
 #: of the "pallas2" query (as phase 4's: two of each per closest query and
 #: one per shadow query over 4 bounces), and under intersector="packet"
 #: (one sb_intersect per query, no cull kernel)
-KNOB_LAUNCHES = {k: MAX_LAUNCHES for k in MT_PATH}
-PACKET_LAUNCHES = {"sb_intersect": 2 * BOUNCES}
+KNOB_LAUNCHES = {**{k: MAX_LAUNCHES for k in MT_PATH}, "surface": BOUNCES}
+PACKET_LAUNCHES = {"sb_intersect": 2 * BOUNCES, "surface": BOUNCES}
 #: phase 18's frames, by their key in its results and launches_by_path
 KNOB_FRAMES = ("frame_xla", "frame_sort_packed", "frame_sort_group",
                "frame_near_frac", "frame_primary_identity",
@@ -920,19 +931,23 @@ def plain_walk():
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run the packet query on the kernels' plain versions (parity
-    phase only)."""
+    """Run the packet query and the bounce loop's surface on the kernels'
+    plain versions (parity phases only)."""
     import functools
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
-    saved = (pk.block_cull, pk.pair_cull, pk.sb_intersect)
+    from prismarine_core_tpu_torch.ops import surface as sf
+    from prismarine_core_tpu_torch.render import integrator as it
+    saved = (pk.block_cull, pk.pair_cull, pk.sb_intersect, it.surface_fields)
     pk.block_cull = cull.block_cull_plain
     pk.pair_cull = cull.pair_cull_plain
     pk.sb_intersect = functools.partial(si.sb_intersect_plain, chunk=128)
+    it.surface_fields = sf.surface_fields_plain
     try:
         yield
     finally:
-        pk.block_cull, pk.pair_cull, pk.sb_intersect = saved
+        (pk.block_cull, pk.pair_cull, pk.sb_intersect,
+         it.surface_fields) = saved
 
 
 def frame_samples(cfg, dev, seed=0):
@@ -965,7 +980,8 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
     cam_s, bounce_s = frame_samples(cfg, dev)
 
     # the main-path run: counters from 0, read right after
-    read = zero_launches()
+    sharded = cfg.intersector == "pallas_sharded"
+    read = zero_launches(sharded)
     syncs0 = counts["pc.sync.compact"]
     t0 = time.perf_counter()
     img, stats = render_with_samples(scene, cam, cfg, cam_s, bounce_s,
@@ -977,7 +993,8 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
     log(f"[{tag}] first frame {first_s:.3f} s; launches {launches}; "
         f"{compactions} pair compactions")
     for k, n in launches.items():
-        require(0 < n <= max_launches if k in kernels else n == 0,
+        require(n == (0 if sharded else cfg.max_bounces) if k == "surface"
+                else 0 < n <= max_launches if k in kernels else n == 0,
                 f"{tag} {k}: {n} launches")
     require(img.shape == (cfg.height, cfg.width, 3), f"{tag} image shape "
             f"{tuple(img.shape)}")
@@ -1056,19 +1073,23 @@ def phase_parity(scene, cam, cfg, img, samples, tag="parity"):
     return image_gate(img, ref, tag)
 
 
-#: the kernels whose launches the phases count (their ``pc.kernel.<name>``
-#: spans)
-KERNELS = ("block_cull", "pair_cull", "sb_intersect", "sb_intersect_mt2",
-           "sb_intersect_mxu", "bvh_walk")
-
-
-def zero_launches():
+def zero_launches(sharded=False):
     """A reader of every kernel's launches since this call (the counts of
-    its ``pc.kernel.<name>`` span)."""
+    its ``pc.kernel.<name>`` span).  It checks the surface kernel's at each
+    read: one launch in each ``pc.surface`` span since the call, or none on
+    a ``sharded`` path (there the sharded query carries the surface)."""
     from prismarine_core_tpu_torch.utils.profiling import counts
     start = {k: counts[f"pc.kernel.{k}"] for k in KERNELS}
-    return lambda: {k: counts[f"pc.kernel.{k}"] - n
-                    for k, n in start.items()}
+    spans0 = counts["pc.surface"]
+
+    def read():
+        out = {k: counts[f"pc.kernel.{k}"] - n for k, n in start.items()}
+        spans = counts["pc.surface"] - spans0
+        require(out["surface"] == (0 if sharded else spans),
+                f"surface kernel: {out['surface']} launches in {spans} "
+                f"surface spans{' (sharded)' if sharded else ''}")
+        return out
+    return read
 
 
 def phase_frame_mt2(scene, cam, cfg, img, samples, n_frames=3):
@@ -1135,7 +1156,10 @@ def fetch_times(scene, stub_scene, cam, cfg, dev):
     on the textured hall and on the stub hall (the same geometry), one
     packed diffuse fetch (``sample_bilinear``), and that fetch's quad-row
     gather alone beside its bytes bound (each row read and written once,
-    the index read once)."""
+    the index read once).  Both surfaces take their fields at the hit from
+    the surface kernel (``csrc/surface.cu``), so the stub's time is that
+    kernel's, and the textured time less the stub's is the texture chain
+    (its fetches and filters, and the kernel's uv and tangent)."""
     import torch
     from prismarine_core_tpu_torch.models import textures as tx
     from prismarine_core_tpu_torch.models.camera import generate_rays
@@ -1176,10 +1200,13 @@ def fetch_times(scene, stub_scene, cam, cfg, dev):
         quad_gather_bound_ms=bound(0, 2 * flat.numel() * 64
                                    + flat.numel() * 8)[0],
         lanes=int(tid.numel()), textured_lanes=int((tid >= 0).sum()))
+    out["texture_chain_ms"] = (out["surface_textured_ms"]
+                               - out["surface_stub_ms"])
     log(f"[fetch] {out['lanes']} camera-ray hits ({out['textured_lanes']} "
         f"on a diffuse texture): _interpolate_surface textured "
-        f"{out['surface_textured_ms']:.4f} ms, stub "
-        f"{out['surface_stub_ms']:.4f} ms; one packed bilinear fetch "
+        f"{out['surface_textured_ms']:.4f} ms, stub (the surface kernel) "
+        f"{out['surface_stub_ms']:.4f} ms, so the texture chain "
+        f"{out['texture_chain_ms']:.4f} ms; one packed bilinear fetch "
         f"{out['fetch_ms']:.4f} ms; its quad-row gather alone "
         f"{out['quad_gather_ms']:.4f} ms against a bytes bound of "
         f"{out['quad_gather_bound_ms']:.4f} ms")
@@ -1442,6 +1469,94 @@ def phase_walk(scene, cam, cfg, dev):
     return out
 
 
+#: bytes the surface kernel must move a lane: the hit (tri, u, v) read,
+#: and written the fields shading reads (ns, ng, uv, albedo and alpha,
+#: roughness and metallic, emissive, transmission, ior)
+SURFACE_READ_BYTES, SURFACE_WRITE_BYTES = 12, 84
+#: float32 words of a triangle and of a material that the texture-less
+#: surface needs, read once: v0..v2, n0..n2 and mat_id; diffuse,
+#: specular, emissive, transmission (4 each), ior and the 4 texture ids
+SURFACE_TRI_WORDS, SURFACE_MAT_WORDS = 19, 21
+
+
+def phase_surface(scene, cam, cfg, dev):
+    """The surface kernel at the bounce-1 hits of the bench frame at 4 spp
+    under "bvh" (the benchmark's 3,686,400 lanes): equal to its plain
+    version bit for bit on every field; CUDA-event times of both in
+    alternating turns; the bytes bound and the kernel's share of it; its
+    registers; one 4-spp frame launching it once a bounce."""
+    import torch
+    from prismarine_core_tpu_torch import _build
+    from prismarine_core_tpu_torch.models.materials import _ARRAY_FIELDS
+    from prismarine_core_tpu_torch.ops import surface as sf
+    from prismarine_core_tpu_torch.render.integrator import (
+        closest_hit, render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    from prismarine_core_tpu_torch.utils.profiling import counts
+    t0 = time.perf_counter()
+    cfg4 = cfg.replace(spp=4, intersector="bvh")
+    _, _, _, carry1, _ = first_bounce(scene, cam, cfg4, dev)
+    o1, d1, alive1 = carry1[0], carry1[1], carry1[4]
+    hit = closest_hit(scene, o1, d1, cfg4,
+                      t_cap=torch.where(alive1, INF_DIST, 0.0))
+    r = int(hit.tri.shape[0])
+    got = sf.surface_fields(scene, hit)
+    want = sf.surface_fields_plain(scene, hit)
+    torch.cuda.synchronize()
+
+    def fields(f):
+        ns, ng, uv, tang, mat = f
+        return [("ns", ns), ("ng", ng), ("uv", uv)] + [
+            (k, getattr(mat, k)) for k in _ARRAY_FIELDS]
+    for (k, a), (_, b) in zip(fields(got), fields(want)):
+        require(got[3] is None and want[3] is None and a.shape == b.shape
+                and a.stride() == b.stride()
+                and torch.equal(a.contiguous().view(torch.int32),
+                                b.contiguous().view(torch.int32)),
+                f"surface kernel != plain on {k}")
+    ms, turns = alternating_ms({
+        "kernel": lambda: sf.surface_fields(scene, hit),
+        "plain": lambda: sf.surface_fields_plain(scene, hit)})
+    soup_r, uv_r, mat_r = sf.surface_records(scene)
+    nbytes = ((SURFACE_READ_BYTES + SURFACE_WRITE_BYTES) * r
+              + 4 * (SURFACE_TRI_WORDS * soup_r.shape[0]
+                     + SURFACE_MAT_WORDS * mat_r.shape[0]))
+    bound_ms, bound_by = bound(0, nbytes)
+    pack_ms = cuda_ms(lambda: (sf.pack_soup(scene.triangles,
+                                            mat_r.shape[0]),
+                               sf.pack_materials(scene.materials)), 10)
+    lib_path = _build.library_path()
+    ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt")
+    build = ([line for line in ptxas_lines(ptxas.read_text())
+              if line.startswith("surface_fields_kernel")]
+             if ptxas.exists() else [])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    samples = make_coherent_sample_arrays(gen, cfg4, block=(64, 64))
+    k0, s0 = counts["pc.kernel.surface"], counts["pc.surface"]
+    render_with_samples(scene, cam, cfg4, *samples)
+    torch.cuda.synchronize()
+    launches = counts["pc.kernel.surface"] - k0
+    require(launches == BOUNCES and counts["pc.surface"] - s0 == BOUNCES,
+            f"surface kernel launches in a 4-spp frame: {launches}")
+    out = dict(lanes=r, missed=int((hit.tri < 0).sum()),
+               ms=ms["kernel"], plain_ms=ms["plain"], turns_ms=turns,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms["kernel"], bytes=nbytes,
+               pack_ms=pack_ms, build=build, launches_frame=launches,
+               seconds=time.perf_counter() - t0)
+    for line in build:
+        log(f"[surface] {line}")
+    log(f"[surface] {r} bounce-1 lanes ({out['missed']} missed) == plain "
+        f"on every field; kernel {ms['kernel']:.4f} ms, plain "
+        f"{ms['plain']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes} B), share {out['bound_share']:.4f}; records packed in "
+        f"{pack_ms:.4f} ms; {launches} launches a 4-spp frame; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def phase_frame_bvh(scene, cam, cfg, dev, mt_img):
     """bench.py's main configuration under intersector="bvh": the frame's
     measurements with the walk launched BVH_LAUNCHES times and no other
@@ -1631,7 +1746,8 @@ def phase_edge(scene, cam, cfg, dev):
     n_walk = edge_launches(n_lights, (3, 1, 1))
     log(f"[edge bvh] launches {launches} (expected bvh_walk {n_walk})")
     for k, n in launches.items():
-        require(n == (n_walk if k == "bvh_walk" else 0),
+        require(n > 0 if k == "surface"
+                else n == (n_walk if k == "bvh_walk" else 0),
                 f"edge bvh {k}: {n} launches")
     value_gate(cfg_b, img, "edge bvh")
     _finite_nonzero(dict(zip(EDGE_LEAVES + ("eye",), grads)), "edge gradient")
@@ -1702,7 +1818,8 @@ def phase_edge(scene, cam, cfg, dev):
     log(f"[edge pallas] launches {launches_p} (expected {n_mt} of each "
         f"\"mt\"-path kernel)")
     for k, n in launches_p.items():
-        require(n == (n_mt if k in MT_PATH else 0),
+        require(n > 0 if k == "surface"
+                else n == (n_mt if k in MT_PATH else 0),
                 f"edge pallas {k}: {n} launches")
     value_gate(cfg_p, img_p, "edge pallas")
     gbp = backward(*forward(cfg_p, True))
@@ -2565,7 +2682,7 @@ def phase_mesh(scene, cam, cfg, dev, img, samples):
         shard_bytes[name] = (b, arr.nbytes)
     renderer = make_sharded_renderer(mesh, cfg_cs)
     torch.cuda.reset_peak_memory_stats(dev)
-    read = zero_launches()
+    read = zero_launches(sharded=True)
     syncs0 = counts["pc.sync.compact"]
     t0 = time.perf_counter()
     big = renderer(dhall, cam, *big_s)
@@ -2607,7 +2724,7 @@ def phase_mesh(scene, cam, cfg, dev, img, samples):
         start, scene, cam, *samples, img)
     step = make_train_step(mesh, cfg_xs, **TRAIN_KW)
     torch.cuda.reset_peak_memory_stats(dev)
-    read = zero_launches()
+    read = zero_launches(sharded=True)
     t0 = time.perf_counter()
     p_s, loss_s = step(start, dscene, cam, *samples, img)
     torch.cuda.synchronize()
@@ -3128,7 +3245,7 @@ def worker_main(work: Path) -> int:
         intersector="pallas_sharded", mesh=mesh))
     renderer(dscene, cam, *samples)
     torch.cuda.synchronize()
-    read = zero_launches()
+    read = zero_launches(sharded=True)
     t0 = time.perf_counter()
     img = renderer(dscene, cam, *samples)
     torch.cuda.synchronize()
@@ -3158,7 +3275,7 @@ def worker_main(work: Path) -> int:
     dscene = distribute_scene(scene, mesh, shard_soup=False)
     step = make_train_step(mesh, cfg_xs, **TRAIN_KW)
     target = given["target"].to(dev)
-    read = zero_launches()
+    read = zero_launches(sharded=True)
     t0 = time.perf_counter()
     params, loss = step(start, dscene, cam, *samples, target)
     torch.cuda.synchronize()
@@ -3313,8 +3430,8 @@ def phase_inverse(dev):
     48x48, 2 spp, 2 bounces, "bvh", Adam 5e-2, INVERSE_STEPS steps): its
     main exits 0 (albedo L1 < 0.15) with its PNG strip written into a
     temporary directory; the same loop again through ``recover_albedo``
-    with the launch counters read around it (the walk on every step, no
-    other kernel), a host clock around each step ended by one synchronize
+    with the launch counters read around it (the walk and the surface on
+    every step, no other kernel), a host clock around each step ended by one synchronize
     (ms/step: the mean of steps 2-INVERSE_STEPS), the error by material
     and channel at INVERSE_TABLE_STEPS, peak memory and one profiled step;
     and one loss and gradient on the walk's plain version against the
@@ -3379,7 +3496,9 @@ def phase_inverse(dev):
     require(l1 < inv.L1_PASS and losses[-1] < losses[0],
             f"inverse: albedo L1 {l1}, losses {losses[0]} -> {losses[-1]}")
     require(launches["bvh_walk"] > 0 and per_step == int(per_step)
-            and all(n == 0 for k, n in launches.items() if k != "bvh_walk"),
+            and launches["surface"] == cfg.max_bounces * INVERSE_STEPS
+            and all(n == 0 for k, n in launches.items()
+                    if k not in ("bvh_walk", "surface")),
             f"inverse launches {launches}")
 
     def loss_grad():
@@ -3429,7 +3548,7 @@ def study_frame_gate(fn, tag, bounds):
     launches = read()
     log(f"[{tag}] launches {launches}, mean {float(img.mean()):.6f}")
     for k, n in launches.items():
-        lo, hi = bounds.get(k, (0, 0))
+        lo, hi = bounds.get(k, (1, math.inf) if k == "surface" else (0, 0))
         require(lo <= n <= hi, f"{tag} {k}: {n} launches")
     require(bool(torch.isfinite(img).all()), f"{tag}: non-finite image")
     t0 = time.perf_counter()
@@ -3620,6 +3739,7 @@ def main() -> int:
                                       mesh["train_1x2"]["loss"], img, samples)
     knobs = phase_knobs(scene, cam, cfg, dev, img, frame)
     examples = phase_examples(dev)
+    surface = phase_surface(scene, cam, cfg, dev)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0),
                         app["rounds"]["max_abs_err"].get(k, 0.0),
@@ -3687,7 +3807,7 @@ def main() -> int:
          "bound_ms": ktimes["bounce1"][k][3],
          "bound_by": ktimes["bounce1"][k][4], "library_ms": None,
          "shape": "bounce-1 rays, round 1 of the closest query"}
-        for k in KERNELS if k != "bvh_walk"]
+        for k in KERNELS if k not in ("bvh_walk", "surface")]
     # the default cull's block-granular dense cull beside the 256-box one
     bc = default_cull["block_cull"]
     rows[0].update({
@@ -3731,6 +3851,21 @@ def main() -> int:
                   "the first form; _capped: the same rays as the bounce "
                   "step gives them (dead lanes capped at 0); sorted: "
                   "every cap INF_DIST, coherence-sorted"})
+    # the port's own surface kernel (the JAX package leaves the surface to
+    # XLA): the bounce-1 hits of the 4-spp frame under "bvh"
+    rows.append(
+        {"name": "surface_fields", "route": "cuda",
+         "source": "prismarine_core_tpu_torch/csrc/surface.cu",
+         "replaces": None, "launches": launches["surface"],
+         "launches_by_path": by_path["surface"],
+         "launches_4spp_frame": surface["launches_frame"],
+         "max_abs_err": 0.0, "ms": surface["ms"],
+         "plain_ms": surface["plain_ms"], "bound_ms": surface["bound_ms"],
+         "bound_by": surface["bound_by"], "library_ms": None,
+         "bound_share": surface["bound_share"], "build": surface["build"],
+         "pack_ms": surface["pack_ms"],
+         "shape": "bounce-1 hits of the bench frame at 4 spp under "
+                  "\"bvh\" (3,686,400 lanes), texture-less"})
     table = {"kernels": rows,
         "frame": {k: v for k, v in frame.items() if k != "launches"},
         "frame_mt2": {k: v for k, v in frame2.items() if k != "launches"},

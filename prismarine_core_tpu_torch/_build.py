@@ -43,6 +43,9 @@ _SIGNATURES = {
     # nodes, slots, o, d, t_cap, out_t, out_slot, next_ray, n_rays,
     # n_nodes, leaf_size, any_hit, stream
     "bvh_walk_launch": (_P,) * 8 + (_I, _I, _I, _I, _P),
+    # soup, uvs, mats, tri, u, v, ns, ng, uv, tang, diffuse, specular,
+    # emissive, transmission, ior, tex, n_rays, textured, bump, stream
+    "surface_fields_launch": (_P,) * 16 + (_I, _I, _I, _P),
 }
 # the "mt2" and "mxu" walks take the "mt" walk's arguments
 _SIGNATURES["sb_intersect_mt2_launch"] = _SIGNATURES["sb_intersect_launch"]
@@ -129,6 +132,35 @@ def check(code: int, name: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class Records:
+    """A kernel's packed records, kept for the last source tensors they
+    were packed from and reused while every source tensor keeps its
+    storage, layout and version.  The key holds each tensor's data
+    pointer, shape, strides, dtype, device and version counter (shared
+    with every view and detached copy, so an in-place write changes it),
+    and the entry holds the tensors themselves, so no other tensor can
+    take their addresses while it is kept; a refit makes new tensors,
+    hence a new key.  Inference tensors keep no version counter: their
+    records are packed at every call."""
+
+    def __init__(self):
+        self._entry = None      # (key, source tensors, records)
+
+    def get(self, srcs, pack):
+        """The records ``pack()`` builds from the tensors ``srcs``, packed
+        outside autograd."""
+        import torch
+        if any(t.is_inference() for t in srcs):
+            with torch.no_grad():
+                return pack()
+        key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                     t.device, t._version) for t in srcs)
+        if self._entry is None or self._entry[0] != key:
+            with torch.no_grad():
+                self._entry = (key, srcs, pack())
+        return self._entry[2]
 
 
 def check_tensor(t, dtype, shape, name, device=None, numel=None):

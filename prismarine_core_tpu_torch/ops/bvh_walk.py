@@ -154,30 +154,17 @@ def pack_slots(bvh):
                       bvh.tv2.contiguous().view(torch.int32), zero], dim=1)
 
 
-#: (key, source tensors, (nodes, slots)) of the last BVH walked
-_records = None
+#: the packed records of the last BVH walked
+_records = _build.Records()
 
 
 def walk_records(bvh):
     """(nodes, slots) of ``bvh``, packed at the first call and then reused
-    while every source tensor keeps its storage, layout and version.  The
-    key holds each tensor's data pointer, shape, strides, dtype, device
-    and version counter (shared with every view and detached copy, so an
-    in-place write changes it), and the entry holds the tensors
-    themselves, so no other tensor can take their addresses while it is
-    kept; a refit makes new tensors, hence a new key.  Inference tensors
-    keep no version counter: their records are packed at every call."""
-    global _records
-    srcs = (bvh.lo, bvh.hi, bvh.left, bvh.skip, bvh.tv0, bvh.tv1, bvh.tv2,
-            bvh.orig)
-    if any(t.is_inference() for t in srcs):
-        return pack_nodes(bvh), pack_slots(bvh)
-    key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
-                 t.device, t._version) for t in srcs)
-    if _records is None or _records[0] != key:
-        with torch.no_grad():
-            _records = (key, srcs, (pack_nodes(bvh), pack_slots(bvh)))
-    return _records[2]
+    while every source tensor keeps its storage, layout and version
+    (``_build.Records``)."""
+    return _records.get((bvh.lo, bvh.hi, bvh.left, bvh.skip, bvh.tv0,
+                         bvh.tv1, bvh.tv2, bvh.orig),
+                        lambda: (pack_nodes(bvh), pack_slots(bvh)))
 
 
 def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):

@@ -47,6 +47,7 @@ from prismarine_core_tpu_torch.models.textures import (
 from prismarine_core_tpu_torch.ops import sampling as smp
 from prismarine_core_tpu_torch.ops.intersect import (
     Hit, intersect_closest_brute, intersect_sphere, occluded_brute)
+from prismarine_core_tpu_torch.ops.surface import surface_fields
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import (
     GAP, INF_DIST, RenderConfig, check_supported)
@@ -184,9 +185,11 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
     texture modulations.  ``kinds``: the materials' ``kinds_bound``
     (needed for a textured scene); a kind no material binds skips its
     whole fetch and filter chain, and the texture-less stub stack skips
-    uv, the tangent frame and every fetch.  ``carried``: the sharded
-    query's interpolated fields (ns, ng, tang, uv, mat_id), used instead
-    of gathers from the soup (a husk on a distributed scene)."""
+    uv, the tangent frame and every fetch.  The fields at the hit come
+    from the soup through ``ops/surface.py:surface_fields`` (one kernel
+    launch on a CUDA card) or, with ``carried``, from the sharded query's
+    interpolated fields (ns, ng, tang, uv, mat_id; the soup is a husk on
+    a distributed scene)."""
     if carried is not None:
         ng = pm.normalize(carried["ng"])
         ns = pm.normalize(carried["ns"])
@@ -197,47 +200,17 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
         tang = torch.where(torch.isfinite(tang).all(-1, keepdim=True),
                            tang, 0.0)
     else:
-        tri = torch.clamp(hit.tri, min=0).long()
-        soup = scene.triangles
-        w = (1.0 - hit.u - hit.v)[:, None]
-        uu = hit.u[:, None]
-        vv = hit.v[:, None]
-        ns = pm.normalize(w * soup.n0[tri] + uu * soup.n1[tri]
-                          + vv * soup.n2[tri])
-        v0 = pm.take_rows(soup.v0, tri)
-        e1 = pm.take_rows(soup.v1, tri) - v0
-        e2 = pm.take_rows(soup.v2, tri) - v0
-        ng = pm.normalize(pm.cross(e1, e2))
-        # geometric normal where the shading normal is degenerate
-        ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
-        mat = scene.materials.lookup(soup.mat_id[tri].long())
+        ns, ng, uv, tang, mat = surface_fields(scene, hit, kinds)
     albedo4 = mat.diffuse
     rough, metal = mat.specular[:, 1], mat.specular[:, 2]
     emissive = mat.emissive[:, :3]
-    if getattr(scene.textures, "stub", False):
-        if carried is None:
-            # uv only feeds texture fetches: zeros on texture-less scenes
-            uv = torch.zeros((tri.shape[0], 2), dtype=torch.float32,
-                             device=tri.device)
-    else:
+    if not getattr(scene.textures, "stub", False):
         sample_tex = (sample_bicubic if cfg.texture_filter == "bicubic"
                       else sample_bilinear)
         stack = scene.textures
-        if carried is None:
-            t0 = pm.take_rows(soup.t0, tri)
-            t1 = pm.take_rows(soup.t1, tri)
-            t2 = pm.take_rows(soup.t2, tri)
-            uv = w * t0 + uu * t1 + vv * t2
         if kinds[3]:
-            # tangent-space normal mapping: the tangent from the uv
-            # derivatives, then the bump texture's normal in that frame
-            if carried is None:
-                duv1 = t1 - t0
-                duv2 = t2 - t0
-                det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
-                rdet = pm.safe_rcp(det_uv)[:, None]
-                tang = pm.normalize((e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2])
-                                    * rdet)
+            # tangent-space normal mapping: the bump texture's normal in
+            # the frame of the tangent (from the uv derivatives)
             btex = sample_tex(stack, mat.tex_bump, uv)
             bitan = pm.cross(ns, tang)
             nt = btex[:, :3] * 2.0 - 1.0
