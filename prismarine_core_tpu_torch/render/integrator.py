@@ -189,7 +189,8 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
     from the soup through ``ops/surface.py:surface_fields`` (one kernel
     launch on a CUDA card) or, with ``carried``, from the sharded query's
     interpolated fields (ns, ng, tang, uv, mat_id; the soup is a husk on
-    a distributed scene)."""
+    a distributed scene).  Each bound kind's fetch and its use run inside
+    a span of their own, ``pc.texture.<kind>``."""
     if carried is not None:
         ng = pm.normalize(carried["ng"])
         ns = pm.normalize(carried["ns"])
@@ -209,27 +210,32 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
                       else sample_bilinear)
         stack = scene.textures
         if kinds[3]:
-            # tangent-space normal mapping: the bump texture's normal in
-            # the frame of the tangent (from the uv derivatives)
-            btex = sample_tex(stack, mat.tex_bump, uv)
-            bitan = pm.cross(ns, tang)
-            nt = btex[:, :3] * 2.0 - 1.0
-            n_mapped = pm.normalize(tang * nt[:, 0:1] + bitan * nt[:, 1:2]
-                                    + ns * nt[:, 2:3])
-            ns = torch.where((mat.tex_bump >= 0)[:, None], n_mapped, ns)
+            with span("pc.texture.bump"):
+                # tangent-space normal mapping: the bump texture's normal
+                # in the frame of the tangent (from the uv derivatives)
+                btex = sample_tex(stack, mat.tex_bump, uv)
+                bitan = pm.cross(ns, tang)
+                nt = btex[:, :3] * 2.0 - 1.0
+                n_mapped = pm.normalize(tang * nt[:, 0:1]
+                                        + bitan * nt[:, 1:2]
+                                        + ns * nt[:, 2:3])
+                ns = torch.where((mat.tex_bump >= 0)[:, None], n_mapped, ns)
         if kinds[0]:
-            tex = sample_tex(stack, mat.tex_diffuse, uv)
-            albedo4 = torch.where((mat.tex_diffuse >= 0)[:, None],
-                                  albedo4 * tex, albedo4)
+            with span("pc.texture.diffuse"):
+                tex = sample_tex(stack, mat.tex_diffuse, uv)
+                albedo4 = torch.where((mat.tex_diffuse >= 0)[:, None],
+                                      albedo4 * tex, albedo4)
         if kinds[2]:
-            etex = sample_tex(stack, mat.tex_emissive, uv)
-            emissive = torch.where((mat.tex_emissive >= 0)[:, None],
-                                   emissive * etex[:, :3], emissive)
+            with span("pc.texture.emissive"):
+                etex = sample_tex(stack, mat.tex_emissive, uv)
+                emissive = torch.where((mat.tex_emissive >= 0)[:, None],
+                                       emissive * etex[:, :3], emissive)
         if kinds[1]:
-            has_stex = mat.tex_specular >= 0
-            stex = sample_tex(stack, mat.tex_specular, uv)
-            rough = torch.where(has_stex, rough * stex[:, 1], rough)
-            metal = torch.where(has_stex, metal * stex[:, 2], metal)
+            with span("pc.texture.specular"):
+                has_stex = mat.tex_specular >= 0
+                stex = sample_tex(stack, mat.tex_specular, uv)
+                rough = torch.where(has_stex, rough * stex[:, 1], rough)
+                metal = torch.where(has_stex, metal * stex[:, 2], metal)
     return dict(
         shading_normal=ns,
         geom_normal=ng,
