@@ -265,11 +265,20 @@ Phases (any failure exits non-zero):
                 against the plain version's, its bytes bound (12 B read
                 and 84 B written a lane, 19 words of each triangle and 21
                 of each material once) and its share of it, its
-                registers; one 4 spp frame launching it once a bounce.
+                registers; one 4 spp frame launching it once a bounce;
+ 21. shade    — the shading kernels (csrc/shade.cu, phase_shade) at the
+                bounce-1 step of bench.py's frame at 4 spp under "bvh":
+                every output of shade_kernel and nee_resolve_kernel equal
+                bit for bit to shade_plain's and nee_resolve_plain's, their
+                times in alternating turns against the plain versions',
+                their bytes bounds and shares, their registers; one 4 spp
+                frame launching each once a bounce.  Every phase's launch
+                reader checks one shading launch in each bounce span.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
-JSON (the five ported kernels, bvh_walk and surface_fields, with their
+JSON (the five ported kernels, bvh_walk, surface_fields, shade and
+nee_resolve, with their
 launches on each path, the sharded, default-cull and per-process ones
 included, and
 block_cull's 2,048-box time and bound beside its 256-box ones; and every
@@ -305,6 +314,9 @@ MEAN_BAND = (0.2, 0.4)
 #: spans)
 KERNELS = ("block_cull", "pair_cull", "sb_intersect", "sb_intersect_mt2",
            "sb_intersect_mxu", "bvh_walk", "surface")
+#: the bounce loop's shading kernels, whose launches ``zero_launches``
+#: checks against the bounce spans
+SHADE_KERNELS = ("shade", "nee_resolve")
 #: the kernels of the "mt" frame's packet query
 MT_PATH = ("block_cull", "pair_cull", "sb_intersect")
 MAX_LAUNCHES = 2 * BOUNCES + BOUNCES     # per frame, each kernel
@@ -456,6 +468,11 @@ def short_name(mangled: str) -> str:
     """A kernel's name and, for a walk, its form or query, from its
     mangled name (``sb_intersect_walk_kernel<FormMT2>``,
     ``bvh_walk_kernel<any_hit>``)."""
+    flags = re.search(r"\d+(shade_kernel)ILb([01])ELb([01])ELb([01])E",
+                      mangled)
+    if flags:
+        return (f"{flags.group(1)}<nee={flags.group(2)},env="
+                f"{flags.group(3)},rr={flags.group(4)}>")
     m = re.search(r"\d+(\w+?_kernel)(?:INS_\d+(Form\w+?)E|ILb([01])E)?",
                   mangled.split("prismarine")[-1])
     if m is None:
@@ -931,23 +948,26 @@ def plain_walk():
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run the packet query and the bounce loop's surface on the kernels'
-    plain versions (parity phases only)."""
+    """Run the packet query and the bounce loop's surface and shading on
+    the kernels' plain versions (parity phases only)."""
     import functools
     from prismarine_core_tpu_torch.accel import packet as pk
     from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
+    from prismarine_core_tpu_torch.ops import shade as sh
     from prismarine_core_tpu_torch.ops import surface as sf
     from prismarine_core_tpu_torch.render import integrator as it
-    saved = (pk.block_cull, pk.pair_cull, pk.sb_intersect, it.surface_fields)
+    saved = (pk.block_cull, pk.pair_cull, pk.sb_intersect, it.surface_fields,
+             it.shade, it.nee_resolve)
     pk.block_cull = cull.block_cull_plain
     pk.pair_cull = cull.pair_cull_plain
     pk.sb_intersect = functools.partial(si.sb_intersect_plain, chunk=128)
     it.surface_fields = sf.surface_fields_plain
+    it.shade, it.nee_resolve = sh.shade_plain, sh.nee_resolve_plain
     try:
         yield
     finally:
-        (pk.block_cull, pk.pair_cull, pk.sb_intersect,
-         it.surface_fields) = saved
+        (pk.block_cull, pk.pair_cull, pk.sb_intersect, it.surface_fields,
+         it.shade, it.nee_resolve) = saved
 
 
 def frame_samples(cfg, dev, seed=0):
@@ -1077,18 +1097,25 @@ def zero_launches(sharded=False):
     """A reader of every kernel's launches since this call (the counts of
     its ``pc.kernel.<name>`` span).  It checks the surface kernel's at each
     read: one launch in each ``pc.surface`` span since the call, or none on
-    a ``sharded`` path (there the sharded query carries the surface)."""
+    a ``sharded`` path (there the sharded query carries the surface); and
+    the shading kernel's: one launch in each ``pc.bounce`` span on every
+    path, the NEE resolve at most as many."""
     from prismarine_core_tpu_torch.utils.profiling import counts
-    start = {k: counts[f"pc.kernel.{k}"] for k in KERNELS}
-    spans0 = counts["pc.surface"]
+    start = {k: counts[f"pc.kernel.{k}"] for k in KERNELS + SHADE_KERNELS}
+    spans0, bounces0 = counts["pc.surface"], counts["pc.bounce"]
 
     def read():
         out = {k: counts[f"pc.kernel.{k}"] - n for k, n in start.items()}
         spans = counts["pc.surface"] - spans0
+        bounces = counts["pc.bounce"] - bounces0
         require(out["surface"] == (0 if sharded else spans),
                 f"surface kernel: {out['surface']} launches in {spans} "
                 f"surface spans{' (sharded)' if sharded else ''}")
-        return out
+        require(out["shade"] == bounces
+                and out["nee_resolve"] <= out["shade"],
+                f"shading kernels: {out['shade']} / {out['nee_resolve']} "
+                f"launches in {bounces} bounce spans")
+        return {k: n for k, n in out.items() if k in KERNELS}
     return read
 
 
@@ -1553,6 +1580,119 @@ def phase_surface(scene, cam, cfg, dev):
         f"{ms['plain']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
         f"{nbytes} B), share {out['bound_share']:.4f}; records packed in "
         f"{pack_ms:.4f} ms; {launches} launches a 4-spp frame; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+#: bytes the shading kernel must move a lane (ops/shade.py): read by
+#: every lane o, d, beta, radiance, alive and tri and written o, d, beta,
+#: radiance, alive and the miss record (126); read by a lane that did not
+#: miss its miss record (24); read by a lane on a surface t, ns, albedo and
+#: alpha, roughness and metallic, emissive, transmission, ior and the
+#: eight uniforms of a bounce with sphere NEE (100); written by every lane
+#: with sphere NEE the shadow ray, t_query and the factor (40)
+SHADE_LANE_BYTES, SHADE_KEPT_BYTES = 126, 24
+SHADE_SURFACE_BYTES, SHADE_NEE_BYTES = 100, 40
+#: the NEE resolve's: radiance and the occlusion bit read and the sum
+#: written (25); the factor read where not occluded (12)
+RESOLVE_LANE_BYTES, RESOLVE_VISIBLE_BYTES = 25, 12
+
+
+def phase_shade(scene, cam, cfg, dev):
+    """The shading kernels at the bounce-1 step of the bench frame at 4
+    spp under "bvh" (the benchmark's 3,686,400 lanes): every output equal
+    to the plain version's bit for bit; CUDA-event times of both kernels
+    and both plain versions in alternating turns; the bytes bounds and the
+    kernels' shares of them; their registers; one 4-spp frame launching
+    each once a bounce."""
+    import torch
+    from prismarine_core_tpu_torch.ops import shade as sh
+    from prismarine_core_tpu_torch.render.integrator import (
+        _interpolate_surface, closest_hit, occluded, render_with_samples,
+        surface_kinds)
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    from prismarine_core_tpu_torch.utils.profiling import counts
+    t0 = time.perf_counter()
+    cfg4 = cfg.replace(spp=4, intersector="bvh")
+    _, _, _, carry1, bounce_s = first_bounce(scene, cam, cfg4, dev)
+    alive1 = carry1[4]
+    hit = closest_hit(scene, carry1[0], carry1[1], cfg4,
+                      t_cap=torch.where(alive1, INF_DIST, 0.0))
+    surf = _interpolate_surface(scene, hit, cfg4, surface_kinds(scene))
+    spec = sh.Spec.of(cfg4, scene.lights.count, 1)
+    require(spec.nee and not spec.env_nee and not spec.rr,
+            f"shade phase: flags {spec}")
+    xs = sh.shade_inputs(carry1, hit, surf, bounce_s[1], scene.lights)
+    got = sh.shade(spec, *xs)
+    want = sh.shade_plain(spec, *xs)
+    torch.cuda.synchronize()
+    for k, a, b in zip(sh.OUTPUTS, got, want):
+        require((a is None) == (b is None) and (a is None or (
+            a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+                a.contiguous().view(torch.int32) if a.is_floating_point()
+                else a, b.contiguous().view(torch.int32)
+                if b.is_floating_point() else b))),
+                f"shade kernel != plain on {k}")
+    occ = occluded(scene, got.shadow_o, got.ldir, got.t_query, cfg4)
+    res = sh.nee_resolve(got.radiance, got.factor, occ)
+    require(torch.equal(res.view(torch.int32), sh.nee_resolve_plain(
+        got.radiance, got.factor, occ).view(torch.int32)),
+        "nee_resolve kernel != plain")
+    ms, turns = alternating_ms({
+        "shade": lambda: sh.shade(spec, *xs),
+        "shade_plain": lambda: sh.shade_plain(spec, *xs),
+        "resolve": lambda: sh.nee_resolve(got.radiance, got.factor, occ),
+        "resolve_plain": lambda: sh.nee_resolve_plain(got.radiance,
+                                                       got.factor, occ)})
+    r = int(alive1.shape[0])
+    on = int(got.counts[1])
+    missed = int(got.counts[2])
+    visible = int((~occ).sum())
+    nbytes = (r * (SHADE_LANE_BYTES + SHADE_NEE_BYTES)
+              + (r - missed) * SHADE_KEPT_BYTES + on * SHADE_SURFACE_BYTES)
+    rbytes = r * RESOLVE_LANE_BYTES + visible * RESOLVE_VISIBLE_BYTES
+    bound_ms, bound_by = bound(0, nbytes)
+    rbound_ms, rbound_by = bound(0, rbytes)
+    from prismarine_core_tpu_torch import _build
+    lib_path = _build.library_path()
+    ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt")
+    build = ([line for line in ptxas_lines(ptxas.read_text())
+              if line.startswith(("shade_kernel", "nee_resolve_kernel"))]
+             if ptxas.exists() else [])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    samples = make_coherent_sample_arrays(gen, cfg4, block=(64, 64))
+    k0, k1, b0 = (counts["pc.kernel.shade"], counts["pc.kernel.nee_resolve"],
+                  counts["pc.bounce"])
+    render_with_samples(scene, cam, cfg4, *samples)
+    torch.cuda.synchronize()
+    launches = counts["pc.kernel.shade"] - k0
+    resolves = counts["pc.kernel.nee_resolve"] - k1
+    require(launches == resolves == BOUNCES == counts["pc.bounce"] - b0,
+            f"shading kernel launches in a 4-spp frame: {launches} / "
+            f"{resolves}")
+    out = dict(lanes=r, on_surface=on, missed=missed, visible=visible,
+               ms=ms["shade"], plain_ms=ms["shade_plain"],
+               resolve_ms=ms["resolve"],
+               resolve_plain_ms=ms["resolve_plain"], turns_ms=turns,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms["shade"], bytes=nbytes,
+               resolve_bound_ms=rbound_ms, resolve_bound_by=rbound_by,
+               resolve_bound_share=rbound_ms / ms["resolve"],
+               resolve_bytes=rbytes, build=build, launches_frame=launches,
+               resolve_launches_frame=resolves,
+               seconds=time.perf_counter() - t0)
+    for line in build:
+        log(f"[shade] {line}")
+    log(f"[shade] {r} bounce-1 lanes ({on} on a surface, {missed} missed, "
+        f"{visible} shadow rays unoccluded) == plain on every output; "
+        f"shade {ms['shade']:.4f} ms, plain {ms['shade_plain']:.4f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B), share "
+        f"{out['bound_share']:.4f}; nee_resolve {ms['resolve']:.4f} ms, "
+        f"plain {ms['resolve_plain']:.4f} ms, bound {rbound_ms:.4f} ms "
+        f"({rbytes} B), share {out['resolve_bound_share']:.4f}; "
+        f"{launches} / {resolves} launches a 4-spp frame; "
         f"{out['seconds']:.1f} s")
     return out
 
@@ -3740,6 +3880,7 @@ def main() -> int:
     knobs = phase_knobs(scene, cam, cfg, dev, img, frame)
     examples = phase_examples(dev)
     surface = phase_surface(scene, cam, cfg, dev)
+    shading = phase_shade(scene, cam, cfg, dev)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0),
                         app["rounds"]["max_abs_err"].get(k, 0.0),
@@ -3866,6 +4007,23 @@ def main() -> int:
          "pack_ms": surface["pack_ms"],
          "shape": "bounce-1 hits of the bench frame at 4 spp under "
                   "\"bvh\" (3,686,400 lanes), texture-less"})
+    # the port's own shading kernels (the JAX package shades in XLA): the
+    # bounce-1 step of the 4-spp frame under "bvh"
+    for kname, key in (("shade", ""), ("nee_resolve", "resolve_")):
+        rows.append(
+            {"name": kname, "route": "cuda",
+             "source": "prismarine_core_tpu_torch/csrc/shade.cu",
+             "replaces": None,
+             "launches_4spp_frame": shading[f"{key}launches_frame"],
+             "max_abs_err": 0.0, "ms": shading[f"{key}ms"],
+             "plain_ms": shading[f"{key}plain_ms"],
+             "bound_ms": shading[f"{key}bound_ms"],
+             "bound_by": shading[f"{key}bound_by"], "library_ms": None,
+             "bound_share": shading[f"{key}bound_share"],
+             "build": [b for b in shading["build"]
+                       if b.startswith(kname + "_kernel")],
+             "shape": "the bounce-1 step of the bench frame at 4 spp "
+                      "under \"bvh\" (3,686,400 lanes), sphere NEE"})
     table = {"kernels": rows,
         "frame": {k: v for k, v in frame.items() if k != "launches"},
         "frame_mt2": {k: v for k, v in frame2.items() if k != "launches"},

@@ -46,6 +46,10 @@ _SIGNATURES = {
     # soup, uvs, mats, tri, u, v, ns, ng, uv, tang, diffuse, specular,
     # emissive, transmission, ior, tex, n_rays, textured, bump, stream
     "surface_fields_launch": (_P,) * 16 + (_I, _I, _I, _P),
+    # in[23], out[17], ints[12], floats[3] (ops/shade.py), stream
+    "shade_launch": (_P,) * 5,
+    # radiance, factor, occ, out, n_rays, stream
+    "nee_resolve_launch": (_P,) * 4 + (_I, _P),
 }
 # the "mt2" and "mxu" walks take the "mt" walk's arguments
 _SIGNATURES["sb_intersect_mt2_launch"] = _SIGNATURES["sb_intersect_launch"]

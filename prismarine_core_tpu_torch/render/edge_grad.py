@@ -53,6 +53,7 @@ import torch
 from prismarine_core_tpu_torch.models.camera import Camera
 from prismarine_core_tpu_torch.ops import sampling as smp
 from prismarine_core_tpu_torch.ops.intersect import intersect_sphere
+from prismarine_core_tpu_torch.ops.shade import specular_colour
 from prismarine_core_tpu_torch.render.integrator import (
     _interpolate_surface, closest_hit, occluded, render_with_samples,
     surface_kinds, trace_radiance)
@@ -348,17 +349,11 @@ def _plane_point(cam_sg, cfg, spix, p0, n_r):
 def _diffuse_prob(scene, cfg, hit, d_cam):
     """The receiver's surface record, its faceforwarded normal and the
     integrator's probability of the diffuse branch there (alpha times one
-    minus the specular color's length, ``integrator.make_bounce_step``)."""
+    minus the specular color's length, ``ops/shade.py:specular_colour``)."""
     surf = _interpolate_surface(scene, hit, cfg, surface_kinds(scene))
     n_ff = pm.faceforward(surf["shading_normal"], d_cam)
-    cosmag = torch.clamp(
-        torch.clamp(torch.abs(pm.dot(d_cam, n_ff)), min=1e-6)
-        ** (cfg.ior - 1.0), 0.0, 1.0)
-    ones = torch.ones_like(surf["albedo"])
-    dielectric = pm.mix(ones, torch.full_like(ones, 0.05), cosmag[:, None])
-    sc = pm.mix(dielectric, surf["albedo"],
-                torch.sqrt(torch.clamp(surf["metallic"], 0.0, 1.0))[:, None])
-    spca = torch.clamp(pm.length(sc), 0.0, 1.0)
+    _, spca = specular_colour(d_cam, n_ff, surf["albedo"], surf["metallic"],
+                              cfg.ior - 1.0)
     return surf, n_ff, surf["alpha"] * (1.0 - spca)
 
 

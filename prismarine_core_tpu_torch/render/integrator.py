@@ -46,7 +46,9 @@ from prismarine_core_tpu_torch.models.textures import (
     env_pdf, sample_bicubic, sample_bilinear, sample_env_direction)
 from prismarine_core_tpu_torch.ops import sampling as smp
 from prismarine_core_tpu_torch.ops.intersect import (
-    Hit, intersect_closest_brute, intersect_sphere, occluded_brute)
+    Hit, intersect_closest_brute, occluded_brute)
+from prismarine_core_tpu_torch.ops.shade import (
+    Spec, nee_resolve, shade, shade_inputs)
 from prismarine_core_tpu_torch.ops.surface import surface_fields
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import (
@@ -251,40 +253,6 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
 
 
 @spanned("pc.nee")
-def _nee_contribution(scene, cfg: RenderConfig, p, n, ns_raw, diffuse_beta,
-                      u, order=None):
-    """Next-event estimation toward one uniformly chosen sphere light: a
-    point inside the sphere, the reference's weight heuristic, the raw
-    shading normal's gate, one shadow query.  Returns (contribution
-    f32[R,3], NEE shadow lanes i32)."""
-    n_lights = scene.lights.count
-    li = torch.clamp((u[:, smp.S_RESERVED] * n_lights).to(torch.int32),
-                     0, n_lights - 1).long()
-    center = scene.lights.center[li]
-    radius = scene.lights.radius[li]
-    lcolor = pm.take_rows(scene.lights.color, li) * float(n_lights)
-
-    sphere_pt = center + radius[:, None] * smp.uniform_sphere(
-        u[:, smp.S_LIGHT1], u[:, smp.S_LIGHT2])
-    ldir = pm.normalize(sphere_pt - p)
-    dist = pm.length(center - p)
-    weight = smp.light_sampling_weight(ldir, n, radius, dist)
-
-    shadow_o = p + ldir * GAP
-    t_light = intersect_sphere(shadow_o, ldir, center, radius + GAP)
-    front = pm.dot(ns_raw, ldir) >= 0.0
-    # lanes with no possible contribution get t_cap 0: the packet query
-    # then gives them no pairs at all
-    need = front & (weight > 0.0) & (diffuse_beta > 0.0).any(-1)
-    t_query = torch.where(need, t_light, 0.0)
-    occ = occluded(scene, shadow_o, ldir, t_query, cfg, order=order)
-    vis = need & ~occ & (t_light < INF_DIST)
-    contrib = torch.where(vis[:, None],
-                          diffuse_beta * weight[:, None] * lcolor, 0.0)
-    return contrib, need.sum(dtype=torch.int32)
-
-
-@spanned("pc.nee")
 def _env_nee_contribution(scene, cfg: RenderConfig, p, n, diffuse_beta, u,
                           order=None):
     """NEE toward the environment's bright texels (``cfg.env_nee``): one
@@ -335,122 +303,30 @@ def make_bounce_step(scene, cfg: RenderConfig, fixed_order=None):
 
     @spanned("pc.bounce")
     def step(carry, u):
-        (o, d, beta, radiance, alive, prev_pdf, miss_dir, miss_beta,
-         miss_pdf, bounce_i) = carry
+        o, d, alive, bounce_i = carry[0], carry[1], carry[4], carry[9]
         t_cap = torch.where(alive, INF_DIST, 0.0)
         hit, order, carried = closest_hit(scene, o, d, cfg, t_cap=t_cap,
                                           with_order=True, order=fixed_order,
                                           with_surface=True)
-
-        # deferred env pickup: record (direction, throughput, bsdf pdf)
-        # at the miss, fetch once after the loop
-        miss = alive & hit.missed
-        miss_dir = torch.where(miss[:, None], d, miss_dir)
-        miss_beta = torch.where(miss[:, None], beta, miss_beta)
-        if cfg.env_nee:
-            miss_pdf = torch.where(miss, prev_pdf, miss_pdf)
-
-        on_surf = alive & ~hit.missed
         surf = _interpolate_surface(scene, hit, cfg, kinds, carried)
-        p = o + hit.t[:, None] * d
-        n = pm.faceforward(surf["shading_normal"], d)
-
-        radiance = radiance + torch.where(on_surf[:, None],
-                                          beta * surf["emissive"], 0.0)
-
-        # specular color model
-        cosmag = torch.clamp(
-            torch.clamp(torch.abs(pm.dot(d, n)), min=1e-6)
-            ** (cfg.ior - 1.0), 0.0, 1.0)
-        dielectric = pm.mix(torch.ones_like(beta),
-                            torch.full_like(beta, 0.05), cosmag[:, None])
-        sc = pm.mix(dielectric, surf["albedo"],
-                    torch.sqrt(torch.clamp(surf["metallic"], 0.0, 1.0)
-                               )[:, None])
-        spca = torch.clamp(pm.length(sc), 0.0, 1.0)
-
-        # branch coins
-        prom = 1.0 - surf["alpha"]
-        pass_through = u[:, smp.S_ALPHA] < prom
-        choose_spec = ~pass_through & (u[:, smp.S_SPEC] < spca)
-        choose_diff = ~pass_through & ~choose_spec
-
-        # continuation directions
-        cos_dir = smp.cosine_hemisphere(n, u[:, smp.S_COS1],
-                                        u[:, smp.S_COS2])
-        gloss = torch.clamp(surf["roughness"] * u[:, smp.S_GLOSS],
-                            0.0, 1.0)[:, None]
-        spec_dir = pm.normalize(pm.mix(pm.reflect(d, n), cos_dir, gloss))
-
-        # pass-through refracts (eta from entering / exiting); total
-        # internal reflection falls back to the mirror direction
-        entering = pm.dot(d, surf["shading_normal"]) < 0.0
-        eta = torch.where(entering, 1.0 / surf["ior"], surf["ior"])
-        refr = pm.refract(d, n, eta[:, None])
-        tir = pm.dot(refr, refr) < 1e-12
-        safe_refr = pm.normalize(torch.where(tir[:, None],
-                                             torch.ones_like(refr), refr))
-        pass_dir = torch.where(tir[:, None], pm.reflect(d, n), safe_refr)
-        trans_tint = torch.where(
-            (surf["transmission"] > 0.0).any(-1, keepdim=True),
-            surf["transmission"], 1.0)
-
-        new_d = torch.where(pass_through[:, None], pass_dir,
-                            torch.where(choose_spec[:, None], spec_dir,
-                                        cos_dir))
-        branch_beta = torch.where(
-            pass_through[:, None], trans_tint,
-            torch.where(choose_spec[:, None],
-                        torch.clamp(sc / torch.clamp(spca, min=1e-6)[:, None],
-                                    0.0, 1.0),
-                        surf["albedo"]))
-        new_beta = beta * branch_beta
-        new_o = p + new_d * GAP
-
-        # NEE from the diffuse branch
-        n_shadow = torch.zeros((), dtype=torch.int32, device=o.device)
-        diffuse_beta = torch.where((on_surf & choose_diff)[:, None],
-                                   beta * surf["albedo"], 0.0)
-        if cfg.direct_light and scene.lights.count > 0:
-            nee, n_shadow = _nee_contribution(
-                scene, cfg, p, n, surf["shading_normal"], diffuse_beta, u,
-                order=order)
-            radiance = radiance + nee
+        # the miss record, the bsdf, the branch choice, the continuation,
+        # the sphere-light NEE set-up, Russian roulette and the carry:
+        # one kernel launch on a CUDA card (ops/shade.py)
+        sh = shade(Spec.of(cfg, scene.lights.count, bounce_i),
+                   *shade_inputs(carry, hit, surf, u, scene.lights))
+        radiance, stats = sh.radiance, sh.counts
+        if sh.factor is not None:
+            with span("pc.nee"):
+                occ = occluded(scene, sh.shadow_o, sh.ldir, sh.t_query, cfg,
+                               order=order)
+                radiance = nee_resolve(radiance, sh.factor, occ)
         if cfg.env_nee:
             env_nee, n_env_shadow = _env_nee_contribution(
-                scene, cfg, p, n, diffuse_beta, u, order=order)
+                scene, cfg, sh.p, sh.n, sh.diffuse_beta, u, order=order)
             radiance = radiance + env_nee
-            n_shadow = n_shadow + n_env_shadow
-            # the continuation's bsdf pdf: cosine for diffuse lanes, 0
-            # (a delta) for specular and pass-through ones
-            prev_pdf = torch.where(
-                choose_diff & on_surf,
-                torch.clamp(pm.dot(new_d, n), min=0.0) / math.pi, 0.0)
-
-        new_alive = on_surf & (pm.length(new_beta) > cfg.min_throughput)
-
-        # Russian roulette from bounce cfg.rr_start_bounce on: survive with
-        # probability q = clamp(max channel of throughput, rr_min_q, 1),
-        # survivors reweighted by 1/q (unbiased)
-        if 0 < cfg.rr_start_bounce <= bounce_i:
-            q = torch.clamp(new_beta.amax(dim=-1), cfg.rr_min_q, 1.0)
-            survive = u[:, smp.S_RR] < q
-            new_alive = new_alive & survive
-            new_beta = torch.where(survive[:, None], new_beta / q[:, None],
-                                   new_beta)
-
-        new_o = torch.where(on_surf[:, None], new_o, o)
-        new_d = torch.where(on_surf[:, None], new_d, d)
-        new_beta = torch.where(on_surf[:, None], new_beta, beta)
-        stats = torch.stack([
-            alive.sum(dtype=torch.int32),       # lanes entering the bounce
-            on_surf.sum(dtype=torch.int32),     # surface interactions
-            miss.sum(dtype=torch.int32),        # env terminations
-            new_alive.sum(dtype=torch.int32),   # survivors
-            n_shadow,                           # NEE shadow lanes
-        ])
-        return ((new_o, new_d, new_beta, radiance, new_alive, prev_pdf,
-                 miss_dir, miss_beta, miss_pdf, bounce_i + 1), stats)
+            stats = torch.cat([stats[:4], (stats[4] + n_env_shadow)[None]])
+        return ((sh.o, sh.d, sh.beta, radiance, sh.alive, sh.prev_pdf,
+                 sh.miss_dir, sh.miss_beta, sh.miss_pdf, bounce_i + 1), stats)
 
     return step
 
