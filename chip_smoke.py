@@ -108,8 +108,8 @@ Phases (any failure exits non-zero):
                 hits);
  11. frame bvh — bench.py's main configuration with intersector="bvh":
                 the frame's measurements, the walk launched 8 times and
-                no packet-query kernel, the same frame on the walk's plain
-                version bit-identical, and >= 98% of pixels and the mean
+                no packet-query kernel, the same frame on the kernels'
+                plain versions bit-identical, and >= 98% of pixels and the mean
                 within 0.5% of the "mt" frame on the same samples;
  12. frames rr — the bench configuration with rr_start_bounce=2 on
                 "pallas" and on "bvh" (the same samples): each held to
@@ -126,7 +126,7 @@ Phases (any failure exits non-zero):
                 bit-identical to render_with_samples, the walk launched
                 44 times (edge_launches) and nothing else, the boundary
                 images' vertex gradient non-zero on >= 1,000 entries and
-                equal to the plain walk's up to the backward's atomic
+                equal to the plain versions' up to the backward's atomic
                 order (relative L2 <= 1e-5, cosine >= 0.99999); the same
                 call under "pallas" (value gate, 60 launches of each
                 "mt"-path kernel, the boundary images' vertex gradient
@@ -242,7 +242,7 @@ Phases (any failure exits non-zero):
                 recover_albedo: the walk launched on every step and no
                 other kernel, ms/step (host clock, one synchronize a step,
                 steps 2-60), peak memory, one profiled step; one loss and
-                gradient on the walk's plain version within relative L2
+                gradient on the kernels' plain versions within relative L2
                 1e-5 of the kernel's; (b) r6_rr_quality and (c)
                 coherent_quality_ab at blocks 16 and 64, at the JAX
                 scripts' configurations: one frame of each mode with the
@@ -291,18 +291,15 @@ exits 0 only when every phase passes.  Nothing falls back to the CPU.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import json
-import linecache
 import math
 import re
 import struct
 import subprocess
 import sys
 import time
-import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -408,7 +405,7 @@ STUDY_BLOCKS = (16, 64)
 INVERSE_STEPS = 60
 REFIT_TRIS = 100_000
 #: the bound (relative L2) of the inverse step's loss and diffuse gradient
-#: on the walk's plain version against the kernel (the same forward bits:
+#: on the kernels' plain versions against the kernels (the same forward bits:
 #: only the backward's atomic order may differ)
 INVERSE_PLAIN_BOUND = 1e-5
 #: the inverse loop's steps whose per-material error is logged, and where
@@ -500,11 +497,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def bound(ops, nbytes):
-    """(bound_ms, bound_by): the least time the card could take, the
-    larger of ops at the fp32 peak and bytes at the memory rate."""
-    t_ops, t_bytes = ops / FP32_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
-    return ((t_ops, "operations") if t_ops >= t_bytes
-            else (t_bytes, "bytes"))
+    """(bound_ms, bound_by): the least time the card could take
+    (``bench_port/roofline.py:bound_s``) in ms, and which of ops at the
+    fp32 peak and bytes at the memory rate sets it."""
+    from bench_port.roofline import bound_s
+    return (bound_s(ops, nbytes) * 1e3,
+            "operations" if bound_s(ops, 0) >= bound_s(0, nbytes)
+            else "bytes")
 
 
 def mt2_stages(pt, pm, n_real) -> str:
@@ -670,30 +669,38 @@ def first_bounce(scene, cam, cfg, dev):
 
 
 @contextlib.contextmanager
+def seam_choice(pick):
+    """Every kernel wrapper's choice at the seam
+    (``prismarine_core_tpu_torch/ops/dispatch.py``) made by ``pick(x,
+    launch, plain, choose)`` in the block, ``choose`` the seam's own."""
+    from prismarine_core_tpu_torch.ops import dispatch
+    choose = dispatch.choose
+    dispatch.choose = lambda x, launch, plain: pick(x, launch, plain, choose)
+    try:
+        yield
+    finally:
+        dispatch.choose = choose
+
+
+@contextlib.contextmanager
 def recorded_calls(kernels=MT_PATH):
     """The arguments of every call of ``kernels`` (block_cull, pair_cull,
-    sb_intersect, sb_intersect_mxu) the packet query makes in the block
-    (on the kernels), by kernel."""
-    from prismarine_core_tpu_torch.accel import packet as pk
-    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
-    wrappers = {"block_cull": cull.block_cull, "pair_cull": cull.pair_cull,
-                "sb_intersect": si.sb_intersect,
-                "sb_intersect_mxu": si.sb_intersect_mxu}
+    sb_intersect, sb_intersect_mxu, bvh_walk) in the block (on the
+    kernels), by kernel: each launch the seam hands out, by its name."""
     calls = {k: [] for k in kernels}
-    saved = {k: getattr(pk, k) for k in kernels}
 
-    def recorder(k, fn):
-        def run(*args):
-            calls[k].append(args)
-            return fn(*args)
-        return run
-    for k in kernels:
-        setattr(pk, k, recorder(k, wrappers[k]))
-    try:
+    def pick(x, launch, plain, choose):
+        run = choose(x, launch, plain)
+        name = getattr(launch, "__name__", "").removeprefix("launch_")
+        if name not in calls:
+            return run
+
+        def recorded(*args):
+            calls[name].append(args)
+            return run(*args)
+        return recorded
+    with seam_choice(pick):
         yield calls
-    finally:
-        for k, fn in saved.items():
-            setattr(pk, k, fn)
 
 
 def record_step(scene, cfg, carry, samples, queries=STEP_QUERIES):
@@ -916,58 +923,15 @@ def step_inputs(scene, cfg, carry, samples, queries=STEP_QUERIES,
     return errs
 
 
-def host_syncs(fn) -> collections.Counter:
-    """Host syncs torch reports while ``fn()`` runs, counted by the
-    source line that issued them (``set_sync_debug_mode("warn")``)."""
-    import torch
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return collections.Counter(
-        f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno} "
-        f"{linecache.getline(w.filename, w.lineno).strip()!r}"
-        for w in caught if "synchroniz" in str(w.message))
-
-
-@contextlib.contextmanager
-def plain_walk():
-    """Run the "bvh" queries on the walk's plain version."""
-    from prismarine_core_tpu_torch.accel import traverse
-    from prismarine_core_tpu_torch.ops import bvh_walk as bw
-    saved = traverse.bvh_walk
-    traverse.bvh_walk = bw.bvh_walk_plain_hits
-    try:
-        yield
-    finally:
-        traverse.bvh_walk = saved
-
-
-@contextlib.contextmanager
 def plain_versions():
-    """Run the packet query and the bounce loop's surface and shading on
-    the kernels' plain versions (parity phases only)."""
+    """Run every kernel wrapper on its plain version (parity phases only;
+    the pair intersector 128 pairs a step)."""
     import functools
-    from prismarine_core_tpu_torch.accel import packet as pk
-    from prismarine_core_tpu_torch.ops import cull, sb_intersect as si
-    from prismarine_core_tpu_torch.ops import shade as sh
-    from prismarine_core_tpu_torch.ops import surface as sf
-    from prismarine_core_tpu_torch.render import integrator as it
-    saved = (pk.block_cull, pk.pair_cull, pk.sb_intersect, it.surface_fields,
-             it.shade, it.nee_resolve)
-    pk.block_cull = cull.block_cull_plain
-    pk.pair_cull = cull.pair_cull_plain
-    pk.sb_intersect = functools.partial(si.sb_intersect_plain, chunk=128)
-    it.surface_fields = sf.surface_fields_plain
-    it.shade, it.nee_resolve = sh.shade_plain, sh.nee_resolve_plain
-    try:
-        yield
-    finally:
-        (pk.block_cull, pk.pair_cull, pk.sb_intersect, it.surface_fields,
-         it.shade, it.nee_resolve) = saved
+    from prismarine_core_tpu_torch.ops import sb_intersect as si
+    faster = {si.sb_intersect_plain: functools.partial(
+        si.sb_intersect_plain, chunk=128)}
+    return seam_choice(lambda x, launch, plain, choose: faster.get(plain,
+                                                                   plain))
 
 
 def frame_samples(cfg, dev, seed=0):
@@ -1028,8 +992,9 @@ def phase_frame(scene, cam, cfg, dev, n_frames=3, tag="frame",
 
     # every host sync torch detects over one frame, less what switching
     # the detection on and off reports by itself
-    sources = (host_syncs(lambda: render_with_samples(
-        scene, cam, cfg, cam_s, bounce_s)) - host_syncs(lambda: None))
+    from bench_port.trace import host_syncs
+    sources = host_syncs(lambda: render_with_samples(
+        scene, cam, cfg, cam_s, bounce_s))
     syncs = sum(sources.values())
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1297,18 +1262,10 @@ def record_walks(scene, cfg, carry, samples):
     """The arguments of the two ``bvh_walk`` calls of one bounce step at
     ``carry`` under ``cfg`` (intersector "bvh", on the kernel): the
     closest query and the shadow query."""
-    from prismarine_core_tpu_torch.accel import traverse
     from prismarine_core_tpu_torch.render.integrator import make_bounce_step
-    calls, walk = [], traverse.bvh_walk
-
-    def run(*args):
-        calls.append(args)
-        return walk(*args)
-    traverse.bvh_walk = run
-    try:
+    with recorded_calls(("bvh_walk",)) as calls:
         make_bounce_step(scene, cfg)(carry, samples)
-    finally:
-        traverse.bvh_walk = walk
+    calls = calls["bvh_walk"]
     require(len(calls) == 2, f"walks in one bounce step: {len(calls)}")
     return calls
 
@@ -1700,7 +1657,7 @@ def phase_shade(scene, cam, cfg, dev):
 def phase_frame_bvh(scene, cam, cfg, dev, mt_img):
     """bench.py's main configuration under intersector="bvh": the frame's
     measurements with the walk launched BVH_LAUNCHES times and no other
-    kernel, the same frame on the walk's plain version bit-identical, and
+    kernel, the same frame on the kernels' plain versions bit-identical, and
     the image gate against the "mt" frame (same samples)."""
     import torch
     from prismarine_core_tpu_torch.render.integrator import (
@@ -1713,13 +1670,14 @@ def phase_frame_bvh(scene, cam, cfg, dev, mt_img):
     require(res["launches"]["bvh_walk"] == BVH_LAUNCHES,
             f"frame bvh: {res['launches']['bvh_walk']} walk launches")
     t0 = time.perf_counter()
-    with plain_walk():
+    with plain_versions():
         ref = render_with_samples(scene, cam, cfg_b, *samples)
     torch.cuda.synchronize()
     same = torch.equal(img, ref)
-    log(f"[frame bvh] against the frame on the walk's plain version "
+    log(f"[frame bvh] against the frame on the kernels' plain versions "
         f"({time.perf_counter() - t0:.1f} s): bit-identical {same}")
-    require(same, "frame bvh: the image differs from its plain-walk frame")
+    require(same, "frame bvh: the image differs from its plain-version "
+            "frame")
     res["plain_walk_bit_identical"] = same
     res["vs_mt"] = image_gate(img, mt_img, "frame bvh", "mt frame")
     return img, res
@@ -1829,7 +1787,7 @@ def phase_edge(scene, cam, cfg, dev):
     equals ``render_with_samples`` bit for bit; the walk launched
     ``edge_launches`` times and no other kernel; the boundary images'
     vertex gradient finite, non-zero on >= 1,000 entries, and with the
-    walk's plain version in the kernel's place within EDGE_PLAIN_BOUND;
+    kernels' plain versions in their place within EDGE_PLAIN_BOUND;
     the same call once under "pallas" (value gate, the three "mt"-path
     kernels launched ``edge_launches`` times, the boundary gradient within
     EDGE_PLAIN_BOUND of the one on the kernels' plain versions and within
@@ -1892,25 +1850,26 @@ def phase_edge(scene, cam, cfg, dev):
     value_gate(cfg_b, img, "edge bvh")
     _finite_nonzero(dict(zip(EDGE_LEAVES + ("eye",), grads)), "edge gradient")
 
-    # the boundary images alone, on the kernel and on the plain walk
+    # the boundary images alone, on the kernels and on the plain versions
     gb = backward(*forward(cfg_b, True))
     nonzero = sum(int((g != 0).sum()) for g in gb[:3])
     require(all(bool(torch.isfinite(g).all()) for g in gb),
             "boundary gradient not finite")
     require(nonzero >= 1000, f"boundary gradient non-zero on {nonzero}")
     t0 = time.perf_counter()
-    with plain_walk():
+    with plain_versions():
         gb_plain = backward(*forward(cfg_b, True))
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     cos_plain, rel_plain = ec.cos_rel(gb[:3], gb_plain[:3])
     log(f"[edge bvh] boundary vertex gradient non-zero on {nonzero} "
-        f"entries; against the plain walk ({plain_s:.1f} s): cosine "
+        f"entries; against the plain versions ({plain_s:.1f} s): cosine "
         f"{cos_plain:.9f}, relative L2 {rel_plain:.3g}; eye "
         f"{gb[3].tolist()} vs {gb_plain[3].tolist()}")
     require(rel_plain <= EDGE_PLAIN_BOUND[0]
             and cos_plain >= EDGE_PLAIN_BOUND[1],
-            f"edge bvh vs plain walk: cosine {cos_plain}, rel {rel_plain}")
+            f"edge bvh vs plain versions: cosine {cos_plain}, rel "
+            f"{rel_plain}")
 
     # times: 3 reps after a warm one, one sync each
     fwd, bwd, bnd = [], [], []
@@ -2104,8 +2063,9 @@ def phase_rounds(scene, cam, cfg, dev):
                 res = fn("rounds", stale)
             torch.cuda.synchronize()
             compactions = counts["pc.sync.compact"] - syncs0
-            detected = sum((host_syncs(lambda: fn("rounds", stale))
-                            - host_syncs(lambda: None)).values())
+            from bench_port.trace import host_syncs
+            detected = sum(host_syncs(lambda: fn("rounds", stale))
+                           .values())
             pairs = [int(a[3]) for a in calls["sb_intersect"]]
             e, n_checked, plain_ms = check_recorded(calls, tag, seen)
             for k, v in e.items():
@@ -3574,8 +3534,8 @@ def phase_inverse(dev):
     every step, no other kernel), a host clock around each step ended by one synchronize
     (ms/step: the mean of steps 2-INVERSE_STEPS), the error by material
     and channel at INVERSE_TABLE_STEPS, peak memory and one profiled step;
-    and one loss and gradient on the walk's plain version against the
-    kernel's (INVERSE_PLAIN_BOUND).  The sample draw is saved as
+    and one loss and gradient on the kernels' plain versions against the
+    kernels' (INVERSE_PLAIN_BOUND).  The sample draw is saved as
     INVERSE_SAMPLES."""
     import tempfile
     import numpy as np
@@ -3649,18 +3609,19 @@ def phase_inverse(dev):
         loss.backward()
         return loss.detach(), d.grad
     loss_k, grad_k = loss_grad()
-    with plain_walk():
+    with plain_versions():
         loss_p, grad_p = loss_grad()
     rel = float((grad_k - grad_p).norm() / grad_p.norm())
     loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
     small = int((grad_k.abs() < 1e-6).sum())
     same = bool(torch.equal(loss_k, loss_p) and torch.equal(grad_k, grad_p))
-    log(f"[inverse] plain walk: loss {float(loss_p):.9f} vs "
+    log(f"[inverse] plain versions: loss {float(loss_p):.9f} vs "
         f"{float(loss_k):.9f} (rel {loss_rel:.2e}), gradient rel L2 "
         f"{rel:.2e}, bit-identical {same}; {small} of {grad_k.numel()} "
         f"components |g| < 1e-6")
     require(rel <= INVERSE_PLAIN_BOUND and loss_rel <= INVERSE_PLAIN_BOUND,
-            f"inverse: plain walk gradient rel {rel}, loss rel {loss_rel}")
+            f"inverse: plain versions' gradient rel {rel}, loss rel "
+            f"{loss_rel}")
 
     prof = profile_once(lambda: inv.recover_albedo(
         scene, cam, cfg, cam_s, bounce_s, init, 1, target=target),

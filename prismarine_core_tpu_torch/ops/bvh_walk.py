@@ -32,6 +32,7 @@ import torch
 
 from prismarine_core_tpu_torch import _build
 from prismarine_core_tpu_torch._build import check_tensor
+from prismarine_core_tpu_torch.ops import dispatch
 from prismarine_core_tpu_torch.ops.intersect import moller_trumbore
 from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
 from prismarine_core_tpu_torch.utils.profiling import span
@@ -121,8 +122,7 @@ def bvh_walk_plain(bvh, o, d, t_cap, any_hit: bool = False):
 
 def bvh_walk_plain_hits(bvh, o, d, t_cap, any_hit: bool = False):
     """``bvh_walk_plain`` with the kernel's return, (t f32[R], slot
-    i32[R]): what CPU tensors run, and what a caller swaps in for the
-    kernel to compare the two."""
+    i32[R]): the walk's plain version."""
     t, slot, _, _ = bvh_walk_plain(bvh, o, d, t_cap, any_hit)
     return t, slot.to(torch.int32)
 
@@ -167,14 +167,9 @@ def walk_records(bvh):
                         lambda: (pack_nodes(bvh), pack_slots(bvh)))
 
 
-def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
-    """Closest (or, with ``any_hit``, first accepted) hit per ray: ``o``,
-    ``d`` f32[R,3], ``t_cap`` f32[R] (only t strictly below it counts).
-    Returns (t f32[R], slot i32[R]); t is t_cap where there is no hit.
-    CUDA tensors launch ``csrc/bvh_walk.cu`` on the BVH's packed records,
-    CPU tensors run ``bvh_walk_plain_hits``."""
-    if o.device.type == "cpu":
-        return bvh_walk_plain_hits(bvh, o, d, t_cap, any_hit)
+def launch_bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
+    """``bvh_walk_plain_hits``'s (t, slot) from one launch of
+    ``csrc/bvh_walk.cu`` on the BVH's packed records."""
     dev = o.device
     r, n, s = o.shape[0], bvh.n_nodes, bvh.tv0.shape[0]
     for name, t, dtype, shape in (
@@ -205,3 +200,14 @@ def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
             _build.stream_ptr(dev))
     _build.check(code, "bvh_walk_launch")
     return out_t, out_slot
+
+
+def bvh_walk(bvh, o, d, t_cap, any_hit: bool = False):
+    """Closest (or, with ``any_hit``, first accepted) hit per ray: ``o``,
+    ``d`` f32[R,3], ``t_cap`` f32[R] (only t strictly below it counts).
+    Returns (t f32[R], slot i32[R]); t is t_cap where there is no hit.
+    CUDA tensors launch ``csrc/bvh_walk.cu`` on the BVH's packed records
+    (``launch_bvh_walk``), CPU tensors run ``bvh_walk_plain_hits``
+    (``ops/dispatch.py`` chooses)."""
+    return dispatch.choose(o, launch_bvh_walk, bvh_walk_plain_hits)(
+        bvh, o, d, t_cap, any_hit)

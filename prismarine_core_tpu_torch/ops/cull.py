@@ -12,10 +12,11 @@ per (tile, superblock) pair an 8-bit mask, bit k set when some ray of the
 tile passes block ``sb*8 + k``; 0 for pairs >= ``n_real``.
 
 Each wrapper runs its plain PyTorch version when its tensors lie on the
-CPU, and launches the CUDA kernel when they lie on a card, inside the
-span ``pc.kernel.<name>`` (``utils/profiling.py``: its count is the
-kernel's launches).  The plain versions use the kernels'
-operation order and are exact references for them.
+CPU, and launches the CUDA kernel when they lie on a card
+(``ops/dispatch.py`` chooses), inside the span ``pc.kernel.<name>``
+(``utils/profiling.py``: its count is the kernel's launches).  The plain
+versions use the kernels' operation order and are exact references for
+them.
 
 Both kernels first reject whole (tile, box) entries with an interval test
 on the tile's ray bounds and run the slab test only on the survivors
@@ -34,6 +35,7 @@ import torch
 from prismarine_core_tpu_torch import _build
 from prismarine_core_tpu_torch._build import check_tensor
 from prismarine_core_tpu_torch.accel.lbvh import EMPTY_BOX
+from prismarine_core_tpu_torch.ops import dispatch
 from prismarine_core_tpu_torch.ops.sb_intersect import (
     RAY_COLS, RC_IVX, RC_IVY, RC_IVZ, RC_OX, RC_OY, RC_OZ, RC_TCAP, SB,
     TILE, as_count)
@@ -223,8 +225,13 @@ def block_cull(rays, box_rows, n_live):
     """Per-(tile, box) entry distance f32[nt, nb_pad]; ``rays``
     f32[(nt+1)*128, 16], ``box_rows`` f32[8, nb_pad] (nb_pad % 128 == 0),
     ``n_live`` i32 scalar tensor on the rays' device."""
-    if rays.device.type == "cpu":
-        return block_cull_plain(rays, box_rows, n_live)
+    return dispatch.choose(rays, launch_block_cull, block_cull_plain)(
+        rays, box_rows, n_live)
+
+
+def launch_block_cull(rays, box_rows, n_live):
+    """``block_cull_plain``'s distances from one launch of
+    ``csrc/cull.cu``."""
     n_rows = rays.shape[0]
     nb_pad = box_rows.shape[1]
     check_tensor(rays, torch.float32, (n_rows, RAY_COLS), "rays")
@@ -304,8 +311,12 @@ def pair_cull(pair_tile, pair_sb, n_real, rays, sb_boxes):
     """8-bit block masks i32[L] of a tile-major (tile, superblock) pair
     list; ``sb_boxes`` f32[nsb+1, 8, 8] (``sb_box_table``), ``n_real`` i32
     scalar tensor on the rays' device."""
-    if rays.device.type == "cpu":
-        return pair_cull_plain(pair_tile, pair_sb, n_real, rays, sb_boxes)
+    return dispatch.choose(rays, launch_pair_cull, pair_cull_plain)(
+        pair_tile, pair_sb, n_real, rays, sb_boxes)
+
+
+def launch_pair_cull(pair_tile, pair_sb, n_real, rays, sb_boxes):
+    """``pair_cull_plain``'s masks from one launch of ``csrc/cull.cu``."""
     n_pairs = pair_tile.shape[0]
     dev = rays.device
     check_tensor(rays, torch.float32, (rays.shape[0], RAY_COLS), "rays")

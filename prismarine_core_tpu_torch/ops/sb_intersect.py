@@ -46,6 +46,7 @@ import torch
 
 from prismarine_core_tpu_torch import _build
 from prismarine_core_tpu_torch._build import check_tensor
+from prismarine_core_tpu_torch.ops import dispatch
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import INF_DIST, PZERO
 from prismarine_core_tpu_torch.utils.profiling import span
@@ -506,6 +507,18 @@ def _launch(entry, plane_w, pair_tile, pair_sb, pair_mask, n_real, rays,
     return out_t, out_slot
 
 
+def launch_sb_intersect(*args):
+    return _launch("sb_intersect_launch", SB * BLOCK, *args)
+
+
+def launch_sb_intersect_mt2(*args):
+    return _launch("sb_intersect_mt2_launch", SB * BLOCK, *args)
+
+
+def launch_sb_intersect_mxu(*args):
+    return _launch("sb_intersect_mxu_launch", SB * MXU_Q * BLOCK, *args)
+
+
 def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
                  prior=None):
     """Form "mt": closest (t, slot) per ray row after executing a
@@ -513,22 +526,17 @@ def sb_intersect(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
     (pairs >= it are ignored), ``rays`` f32[(nt+1)*128, 16], ``planes``
     f32[nsb+1, 16, 1024], ``prior`` an optional (t, slot) of an earlier
     round.  Returns (t f32[(nt+1)*128], slot i32[(nt+1)*128])."""
-    if rays.device.type == "cpu":
-        return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
-                                  rays, planes, prior)
-    return _launch("sb_intersect_launch", SB * BLOCK, pair_tile, pair_sb,
-                   pair_mask, n_real, rays, planes, prior)
+    return dispatch.choose(rays, launch_sb_intersect, sb_intersect_plain)(
+        pair_tile, pair_sb, pair_mask, n_real, rays, planes, prior)
 
 
 def sb_intersect_mt2(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
                      prior=None):
     """Form "mt2": the arguments and result of ``sb_intersect`` bit for
     bit, computed on the walk two sub-blocks of one ray tile a stage."""
-    if rays.device.type == "cpu":
-        return sb_intersect_plain(pair_tile, pair_sb, pair_mask, n_real,
-                                  rays, planes, prior)
-    return _launch("sb_intersect_mt2_launch", SB * BLOCK, pair_tile,
-                   pair_sb, pair_mask, n_real, rays, planes, prior)
+    return dispatch.choose(rays, launch_sb_intersect_mt2,
+                           sb_intersect_plain)(
+        pair_tile, pair_sb, pair_mask, n_real, rays, planes, prior)
 
 
 def sb_intersect_mxu(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
@@ -536,9 +544,6 @@ def sb_intersect_mxu(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
     """Form "mxu": as ``sb_intersect``, with ``planes`` the coefficient
     planes f32[nsb+1, 16, 4096] of ``mxu_planes_from_planes`` and the ray
     matrix's RC_ONE and c columns filled."""
-    if rays.device.type == "cpu":
-        return sb_intersect_mxu_plain(pair_tile, pair_sb, pair_mask, n_real,
-                                      rays, planes, prior)
-    return _launch("sb_intersect_mxu_launch", SB * MXU_Q * BLOCK,
-                   pair_tile, pair_sb, pair_mask, n_real, rays, planes,
-                   prior)
+    return dispatch.choose(rays, launch_sb_intersect_mxu,
+                           sb_intersect_mxu_plain)(
+        pair_tile, pair_sb, pair_mask, n_real, rays, planes, prior)

@@ -12,9 +12,10 @@ is not occluded.  On CUDA tensors each launches a hand-written kernel
 (``csrc/shade.cu``: ``shade_kernel``, ``nee_resolve_kernel``); on CPU
 tensors each runs its plain version (``shade_plain``,
 ``nee_resolve_plain``), the torch code the bounce loop held before, which
-the kernels compute bit for bit.  A gradient through a kernel is the plain
-version's: ``_Fused``'s backward runs the plain version again on the saved
-inputs and differentiates it.
+the kernels compute bit for bit.  ``ops/dispatch.py`` chooses between
+them, and a gradient through a kernel is the plain version's: its
+``_Fused``'s backward runs the plain version again on the saved inputs and
+differentiates it.
 
 The plain version differs from that torch code in what a lane off a
 surface hands the shadow queries: its own ray (o, d) as the shadow ray and
@@ -31,13 +32,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import math
 import typing
 
 import torch
 
 from prismarine_core_tpu_torch import _build
+from prismarine_core_tpu_torch.ops import dispatch
 from prismarine_core_tpu_torch.ops import sampling as smp
 from prismarine_core_tpu_torch.ops.intersect import intersect_sphere
 from prismarine_core_tpu_torch.utils import math as pm
@@ -45,7 +46,7 @@ from prismarine_core_tpu_torch.utils.config import GAP, INF_DIST
 from prismarine_core_tpu_torch.utils.profiling import span
 
 #: the tensors ``shade`` reads, in the order of the kernel's input
-#: pointers (``csrc/shade.cu``: ``In``) and of ``_Fused``'s inputs: the
+#: pointers (``csrc/shade.cu``: ``In``) and of the seam's inputs: the
 #: carry, the hit, the surface's fields, the bounce's uniforms f32[R,11]
 #: and the sphere-light table
 INPUTS = ("o", "d", "beta", "radiance", "alive", "prev_pdf", "miss_dir",
@@ -272,6 +273,10 @@ def nee_resolve_plain(radiance, factor, occ):
     return radiance + torch.where(occ[:, None], 0.0, factor)
 
 
+def _resolve_plain(*xs):
+    return (nee_resolve_plain(*xs),)
+
+
 def _complete(out, xs) -> Shaded:
     """``Shaded`` from a route's outputs: the pdfs that pass through
     unchanged are the inputs themselves."""
@@ -312,7 +317,7 @@ def _field(t, r: int, dev, name: str, width):
 def launch_shade(spec: Spec, *xs):
     """``_shade_plain``'s outputs from one launch of ``shade_kernel``, in
     new tensors of the plain version's shapes and dtypes.  No autograd:
-    the caller is ``_Fused.forward`` or ``fused``."""
+    the caller is ``dispatch.fused``."""
     x = dict(zip(INPUTS, (v.detach() for v in xs)))
     dev = x["o"].device
     r = x["o"].shape[0]
@@ -377,7 +382,8 @@ def launch_shade(spec: Spec, *xs):
 
 def launch_nee_resolve(radiance, factor, occ):
     """``nee_resolve_plain``'s sum from one launch of
-    ``nee_resolve_kernel``, into a new tensor."""
+    ``nee_resolve_kernel``, into a new tensor (the one output of a
+    tuple)."""
     radiance, factor = radiance.detach(), factor.detach()
     occ = occ.detach().contiguous()
     dev = radiance.device
@@ -392,92 +398,7 @@ def launch_nee_resolve(radiance, factor, occ):
                 radiance.data_ptr(), factor.data_ptr(), occ.data_ptr(),
                 out.data_ptr(), r, _build.stream_ptr(dev))
         _build.check(code, "nee_resolve_launch")
-    return out
-
-
-# --------------------------------------------------------------- autograd
-
-
-def _resolve_launch(*xs):
-    return (launch_nee_resolve(*xs),)
-
-
-def _resolve_plain(*xs):
-    return (nee_resolve_plain(*xs),)
-
-
-@functools.lru_cache(maxsize=None)
-def _shade_fns(spec: Spec):
-    """``launch_shade`` and ``_shade_plain`` bound to ``spec``: one pair a
-    spec, so that the plain one keys ``_graphs``."""
-    return (functools.partial(launch_shade, spec),
-            functools.partial(_shade_plain, spec))
-
-
-#: (plain version, inputs that require grad) -> which of its outputs
-#: require grad
-_graphs: dict = {}
-
-
-def _graph(plain, needs: tuple, xs) -> tuple:
-    """For each output of ``plain``, does it require grad when the inputs
-    flagged in ``needs`` do?  Read once from a run on meta tensors of
-    ``xs``' shapes."""
-    key = (plain, needs)
-    if key not in _graphs:
-        ms = [torch.empty(x.shape, dtype=x.dtype, device="meta")
-              .requires_grad_(nd) for x, nd in zip(xs, needs)]
-        with torch.enable_grad():
-            out = plain(*ms)
-        _graphs[key] = tuple(y is not None and y.requires_grad for y in out)
-    return _graphs[key]
-
-
-class _Fused(torch.autograd.Function):
-    """A kernel's outputs as a function of its tensor inputs: the forward
-    is one ``launch``; the backward runs ``plain`` again on the saved
-    inputs and differentiates it, so a gradient through the kernel is the
-    plain version's.  An output the plain version would not
-    differentiate stays out of the graph, so nothing downstream of it is
-    differentiated either."""
-
-    @staticmethod
-    def forward(ctx, launch, plain, *xs):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(*xs)
-        ctx.plain = plain
-        outs = launch(*xs)
-        graph = _graph(plain, tuple(ctx.needs_input_grad[2:]), xs)
-        ctx.mark_non_differentiable(*(
-            y for y, g in zip(outs, graph) if y is not None and not g))
-        return outs
-
-    @staticmethod
-    def backward(ctx, *grads):
-        needs = ctx.needs_input_grad[2:]
-        xs = [x.detach().requires_grad_(nd)
-              for x, nd in zip(ctx.saved_tensors, needs)]
-        with torch.enable_grad():
-            outs = ctx.plain(*xs)
-        pairs = [(y, g) for y, g in zip(outs, grads)
-                 if g is not None and y is not None and y.requires_grad]
-        wanted = [x for x in xs if x.requires_grad]
-        got = iter(torch.autograd.grad(
-            [y for y, _ in pairs], wanted, [g for _, g in pairs],
-            allow_unused=True) if pairs else [None] * len(wanted))
-        return (None, None,
-                *(next(got) if x.requires_grad else None for x in xs))
-
-
-def fused(launch, plain, *xs):
-    """``plain(*xs)``'s outputs as ``launch(*xs)`` computes them (each a
-    tuple), differentiable as the plain version is (``_Fused``).
-    ``plain`` keys a cache: the same function for the same work."""
-    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
-        # nothing to differentiate: the launch without autograd's
-        # bookkeeping
-        return launch(*xs)
-    return _Fused.apply(launch, plain, *xs)
+    return (out,)
 
 
 def shade_inputs(carry, hit, surf, u, lights):
@@ -497,14 +418,12 @@ def shade(spec: Spec, *xs) -> Shaded:
     """The bounce's shading (``INPUTS`` -> ``Shaded``): on a CUDA card one
     launch of ``shade_kernel`` (``launch_shade``), whether or not a
     gradient flows through it; on CPU tensors ``shade_plain``."""
-    if xs[0].device.type != "cuda":
-        return shade_plain(spec, *xs)
-    return _complete(fused(*_shade_fns(spec), *xs), xs)
+    return _complete(dispatch.fused(*dispatch.bind(
+        launch_shade, _shade_plain, spec), *xs), xs)
 
 
 def nee_resolve(radiance, factor, occ):
     """``nee_resolve_plain``'s sum: on a CUDA card one launch of
     ``nee_resolve_kernel``, whether or not a gradient flows through it."""
-    if radiance.device.type != "cuda":
-        return nee_resolve_plain(radiance, factor, occ)
-    return fused(_resolve_launch, _resolve_plain, radiance, factor, occ)[0]
+    return dispatch.fused(launch_nee_resolve, _resolve_plain, radiance,
+                          factor, occ)[0]

@@ -9,9 +9,11 @@ textured scene, zeros on the texture-less stub stack), the tangent where
 the materials bind a bump map, and the hit triangle's material row.  On a
 CUDA tensor it launches the hand-written kernel ``csrc/surface.cu`` (one
 lane a ray); on a CPU tensor it runs ``surface_fields_plain``, the torch
-code.  A gradient through the kernel's fields is the plain version's:
-``_Surface``'s backward runs the plain version again on the same inputs
-and differentiates it.
+code.  Both are functions of the soup's and the material table's tensors
+and the hit's (``_tensors``), bound to the kind of work, so
+``ops/dispatch.py`` chooses between them, and a gradient through the
+kernel's fields is the plain version's: the seam's backward runs the plain
+version again on the same inputs and differentiates it.
 
 The kernel reads the soup and the material table as packed records
 (``pack_soup``, ``pack_uvs``, ``pack_materials``): 16-byte-aligned rows
@@ -27,7 +29,7 @@ missed lanes included.
 
 from __future__ import annotations
 
-import dataclasses
+import types
 
 import torch
 
@@ -35,6 +37,7 @@ from prismarine_core_tpu_torch import _build
 from prismarine_core_tpu_torch._build import check_tensor
 from prismarine_core_tpu_torch.models.materials import (
     _ARRAY_FIELDS, MaterialTable)
+from prismarine_core_tpu_torch.ops import dispatch
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.profiling import span
 
@@ -50,51 +53,85 @@ def _stub(scene) -> bool:
     return getattr(scene.textures, "stub", False)
 
 
-def surface_fields_plain(scene, hit, kinds=None):
-    """The surface at each hit in torch: (ns f32[R,3], ng f32[R,3], uv
-    f32[R,2], tang f32[R,3] or None, mat), ``mat`` a ``MaterialTable`` of
-    each ray's material row.  ``kinds``: the materials' ``kinds_bound``
-    (read on a textured scene: ``tang`` only where a bump map is bound)."""
-    tri = torch.clamp(hit.tri, min=0).long()
-    soup = scene.triangles
-    ns, ng, uv, tang = _geometry_plain(soup, hit, tri, _stub(scene), kinds)
-    return ns, ng, uv, tang, scene.materials.lookup(soup.mat_id[tri].long())
+#: the soup's fields the surface reads, in the order of the plain
+#: version's and the launch's tensor arguments; the material table's
+#: (``_ARRAY_FIELDS``) follow, then the hit's tri, u and v
+_SOUP_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2", "t0", "t1", "t2",
+                "mat_id")
 
 
-def _geometry_plain(soup, hit, tri, stub, kinds):
-    """(ns, ng, uv, tang) of ``surface_fields_plain``, ``tri`` the hit
-    triangles clamped to 0."""
-    w = (1.0 - hit.u - hit.v)[:, None]
-    uu = hit.u[:, None]
-    vv = hit.v[:, None]
-    ns = pm.normalize(w * soup.n0[tri] + uu * soup.n1[tri]
-                      + vv * soup.n2[tri])
-    v0 = pm.take_rows(soup.v0, tri)
-    e1 = pm.take_rows(soup.v1, tri) - v0
-    e2 = pm.take_rows(soup.v2, tri) - v0
+def _scene_tensors(scene) -> tuple:
+    """The soup's and the material table's tensors the surface reads."""
+    soup, mats = scene.triangles, scene.materials
+    return (*(getattr(soup, f) for f in _SOUP_FIELDS),
+            *(getattr(mats, f) for f in _ARRAY_FIELDS))
+
+
+def _tensors(scene, hit) -> tuple:
+    """The tensors the surface reads, in ``_surface_plain``'s order."""
+    return (*_scene_tensors(scene), hit.tri, hit.u, hit.v)
+
+
+def _fields(out) -> tuple:
+    """(ns, ng, uv, tang, mat) of the flat outputs of ``_surface_plain``
+    or ``launch_surface``."""
+    return (*out[:4], MaterialTable(*out[4:]))
+
+
+def unit_or(v, fallback):
+    """``v`` normalised where that is finite, else ``fallback`` (a
+    tensor of ``v``'s shape or a scalar)."""
+    n = pm.normalize(v)
+    return torch.where(torch.isfinite(n).all(-1, keepdim=True), n, fallback)
+
+
+def _surface_plain(stub: bool, kinds, v0, v1, v2, n0, n1, n2, t0, t1, t2,
+                   mat_id, *rest):
+    """The surface at each hit in torch, as a function of the tensors of
+    ``_tensors``: (ns, ng, uv, tang or None, then the hit triangle's
+    material row field by field)."""
+    *mats, tri, u, v = rest
+    tri = torch.clamp(tri, min=0).long()
+    w = (1.0 - u - v)[:, None]
+    uu = u[:, None]
+    vv = v[:, None]
+    ns = w * n0[tri] + uu * n1[tri] + vv * n2[tri]
+    p0 = pm.take_rows(v0, tri)
+    e1 = pm.take_rows(v1, tri) - p0
+    e2 = pm.take_rows(v2, tri) - p0
     ng = pm.normalize(pm.cross(e1, e2))
     # geometric normal where the shading normal is degenerate
-    ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
+    ns = unit_or(ns, ng)
     tang = None
     if stub:
         # uv only feeds texture fetches: zeros on texture-less scenes
         uv = torch.zeros((tri.shape[0], 2), dtype=torch.float32,
                          device=tri.device)
     else:
-        t0 = pm.take_rows(soup.t0, tri)
-        t1 = pm.take_rows(soup.t1, tri)
-        t2 = pm.take_rows(soup.t2, tri)
-        uv = w * t0 + uu * t1 + vv * t2
+        tc0 = pm.take_rows(t0, tri)
+        tc1 = pm.take_rows(t1, tri)
+        tc2 = pm.take_rows(t2, tri)
+        uv = w * tc0 + uu * tc1 + vv * tc2
         if kinds[3]:
             # tangent-space normal mapping: the tangent from the uv
             # derivatives
-            duv1 = t1 - t0
-            duv2 = t2 - t0
+            duv1 = tc1 - tc0
+            duv2 = tc2 - tc0
             det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
             rdet = pm.safe_rcp(det_uv)[:, None]
             tang = pm.normalize((e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2])
                                 * rdet)
-    return ns, ng, uv, tang
+    row = mat_id[tri].long()
+    return (ns, ng, uv, tang, *(pm.take_rows(f, row) for f in mats))
+
+
+def surface_fields_plain(scene, hit, kinds=None):
+    """The surface at each hit in torch: (ns f32[R,3], ng f32[R,3], uv
+    f32[R,2], tang f32[R,3] or None, mat), ``mat`` a ``MaterialTable`` of
+    each ray's material row.  ``kinds``: the materials' ``kinds_bound``
+    (read on a textured scene: ``tang`` only where a bump map is bound)."""
+    return _fields(_surface_plain(_stub(scene), kinds,
+                                  *_tensors(scene, hit)))
 
 
 def pack_soup(soup, n_mats: int):
@@ -135,34 +172,37 @@ def pack_materials(mats):
 _records = _build.Records()
 
 
+def _records_of(xs: tuple):
+    """(soup, uvs, mats) records of the soup's and the material table's
+    tensors ``xs`` (``_scene_tensors``), packed at the first call and then
+    reused while every one keeps its storage, layout and version
+    (``_build.Records``)."""
+    def pack():
+        soup = types.SimpleNamespace(**dict(zip(_SOUP_FIELDS, xs)))
+        mats = MaterialTable(*xs[len(_SOUP_FIELDS):])
+        return (pack_soup(soup, mats.ior.shape[0]), pack_uvs(soup),
+                pack_materials(mats))
+    return _records.get(xs, pack)
+
+
 def surface_records(scene):
-    """(soup, uvs, mats) records of ``scene``, packed at the first call and
-    then reused while every source tensor keeps its storage, layout and
-    version (``_build.Records``)."""
-    soup, mats = scene.triangles, scene.materials
-    return _records.get(
-        (soup.v0, soup.v1, soup.v2, soup.n0, soup.n1, soup.n2, soup.t0,
-         soup.t1, soup.t2, soup.mat_id,
-         *(getattr(mats, f) for f in _ARRAY_FIELDS)),
-        lambda: (pack_soup(soup, mats.ior.shape[0]), pack_uvs(soup),
-                 pack_materials(mats)))
+    """(soup, uvs, mats) records of ``scene`` (``_records_of``)."""
+    return _records_of(_scene_tensors(scene))
 
 
-
-
-def launch_kernel(scene, hit, kinds=None):
-    """``surface_fields_plain``'s fields from one launch of
-    ``csrc/surface.cu`` on the scene's packed records, into tensors of the
+def launch_surface(stub: bool, kinds, *xs):
+    """``_surface_plain``'s outputs from one launch of ``csrc/surface.cu``
+    on the packed records of ``xs`` (``_tensors``), into tensors of the
     plain version's shapes and dtypes (the material fields as [R,4] rows
-    and [R] columns, as ``lookup`` gathers them).  No autograd: the
-    caller is ``_Surface.forward``."""
-    dev = hit.u.device
-    tri, u, v = hit.tri.detach(), hit.u.detach(), hit.v.detach()
+    and [R] columns, as ``take_rows`` gathers them).  No autograd: the
+    caller is ``dispatch.fused``."""
+    tri, u, v = (x.detach() for x in xs[-3:])
+    dev = u.device
     r = tri.shape[0]
     check_tensor(tri, torch.int32, (r,), "hit.tri", dev)
     check_tensor(u, torch.float32, (r,), "hit.u", dev)
     check_tensor(v, torch.float32, (r,), "hit.v", dev)
-    soup, uvs, mats = surface_records(scene)
+    soup, uvs, mats = _records_of(xs[:-3])
     n_tris, n_mats = soup.shape[0], mats.shape[0]
     if n_tris == 0 or n_mats == 0:
         raise ValueError(f"{n_tris} triangles, {n_mats} materials: the "
@@ -172,7 +212,7 @@ def launch_kernel(scene, hit, kinds=None):
     check_tensor(uvs, torch.float32, (n_tris, UV_WORDS), "uv records", dev)
     check_tensor(mats, torch.float32, (n_mats, MAT_WORDS),
                  "material records", dev)
-    textured = not _stub(scene)
+    textured = not stub
     bump = textured and bool(kinds[3])
 
     def empty(*shape, dtype=torch.float32):
@@ -192,102 +232,13 @@ def launch_kernel(scene, hit, kinds=None):
                 tex.data_ptr(), r, int(textured), int(bump),
                 _build.stream_ptr(dev))
         _build.check(code, "surface_fields_launch")
-    return ns, ng, uv, tang, MaterialTable(*rows, ior, *tex)
-
-
-#: the soup's and the material table's fields the surface differentiates
-#: (the material id and the texture ids are integers)
-_SOUP_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2", "t0", "t1", "t2")
-_MAT_FLOATS = _ARRAY_FIELDS[:5]
-#: for each float output of ``_Surface`` (ns, ng, uv, tang, then the
-#: material's float fields), the ``_inputs`` it depends on: the plain
-#: version's output requires grad where one of them does (ns falls back
-#: to ng; the stub's uv is zeros and depends on nothing)
-_V, _N, _T, _UV = (0, 1, 2), (3, 4, 5), (6, 7, 8), (14, 15)
-_DEPENDS = (_V + _N + _UV, _V, _T + _UV, _V + _T,
-            *((9 + k,) for k in range(len(_MAT_FLOATS))))
-
-
-def _inputs(scene, hit):
-    """The tensors the surface differentiates, in ``_Surface``'s order:
-    the soup's vertices, normals and texcoords, the material table's float
-    fields, the hit's barycentrics."""
-    soup, mats = scene.triangles, scene.materials
-    return (*(getattr(soup, f) for f in _SOUP_FIELDS),
-            *(getattr(mats, f) for f in _MAT_FLOATS), hit.u, hit.v)
-
-
-class _Surface(torch.autograd.Function):
-    """The kernel's fields as a function of ``_inputs``: the forward is one
-    ``launch``; the backward runs the parts of ``surface_fields_plain``
-    that receive a gradient again on the saved inputs and differentiates
-    them, so a gradient through the surface is the plain version's."""
-
-    @staticmethod
-    def forward(ctx, launch, scene, hit, kinds, *xs):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(*xs)
-        ctx.args = (scene, hit, kinds)
-        ns, ng, uv, tang, mat = launch(scene, hit, kinds)
-        outs = (ns, ng, uv, tang, *(getattr(mat, f) for f in _ARRAY_FIELDS))
-        # an output the plain version would not differentiate stays out
-        # of the graph, so no shading downstream of it is differentiated
-        needs = ctx.needs_input_grad[4:]
-        stub = _stub(scene)
-        ctx.mark_non_differentiable(*(
-            y for k, y in enumerate(outs) if y is not None and (
-                k >= len(_DEPENDS) or (k == 2 and stub)
-                or not any(needs[i] for i in _DEPENDS[k]))))
-        return outs
-
-    @staticmethod
-    def backward(ctx, *grads):
-        scene, hit, kinds = ctx.args
-        needs = ctx.needs_input_grad[4:]
-        xs = [x.detach().requires_grad_(n)
-              for x, n in zip(ctx.saved_tensors, needs)]
-        m = len(_SOUP_FIELDS)
-        soup = dataclasses.replace(scene.triangles,
-                                   **dict(zip(_SOUP_FIELDS, xs[:m])))
-        hit = dataclasses.replace(hit, u=xs[-2], v=xs[-1])
-        # the plain version again, only the parts that receive a gradient
-        outs = [None] * len(_DEPENDS)
-        with torch.enable_grad():
-            tri = torch.clamp(hit.tri, min=0).long()
-            if any(g is not None for g in grads[:4]):
-                outs[:4] = _geometry_plain(soup, hit, tri, _stub(scene),
-                                           kinds)
-            if any(g is not None for g in grads[4:len(_DEPENDS)]):
-                mat_id = soup.mat_id[tri].long()
-                for k, x in enumerate(xs[m:m + len(_MAT_FLOATS)]):
-                    if grads[4 + k] is not None:
-                        outs[4 + k] = pm.take_rows(x, mat_id)
-        pairs = [(y, g) for y, g in zip(outs, grads)
-                 if g is not None and y is not None and y.requires_grad]
-        wanted = [x for x in xs if x.requires_grad]
-        got = iter(torch.autograd.grad(
-            [y for y, _ in pairs], wanted, [g for _, g in pairs],
-            allow_unused=True) if pairs else [None] * len(wanted))
-        return (None, None, None, None,
-                *(next(got) if need else None for need in needs))
-
-
-def fused(launch, scene, hit, kinds=None):
-    """``surface_fields_plain``'s fields as ``launch(scene, hit, kinds)``
-    computes them, differentiable as the plain version is (``_Surface``)."""
-    xs = _inputs(scene, hit)
-    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
-        # nothing to differentiate: the launch without autograd's
-        # bookkeeping (~0.15 ms of host time a call on the H100's host)
-        return launch(scene, hit, kinds)
-    out = _Surface.apply(launch, scene, hit, kinds, *xs)
-    return (*out[:4], MaterialTable(*out[4:]))
+    return (ns, ng, uv, tang, *rows, ior, *tex)
 
 
 def surface_fields(scene, hit, kinds=None):
     """``surface_fields_plain``'s fields: on a CUDA card from one launch of
-    ``csrc/surface.cu`` (``launch_kernel``), whether or not a gradient
+    ``csrc/surface.cu`` (``launch_surface``), whether or not a gradient
     flows through them; on CPU tensors from ``surface_fields_plain``."""
-    if hit.u.device.type != "cuda":
-        return surface_fields_plain(scene, hit, kinds)
-    return fused(launch_kernel, scene, hit, kinds)
+    return _fields(dispatch.fused(*dispatch.bind(
+        launch_surface, _surface_plain, _stub(scene), kinds),
+        *_tensors(scene, hit)))

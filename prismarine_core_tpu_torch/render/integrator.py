@@ -49,7 +49,7 @@ from prismarine_core_tpu_torch.ops.intersect import (
     Hit, intersect_closest_brute, occluded_brute)
 from prismarine_core_tpu_torch.ops.shade import (
     Spec, nee_resolve, shade, shade_inputs)
-from prismarine_core_tpu_torch.ops.surface import surface_fields
+from prismarine_core_tpu_torch.ops.surface import surface_fields, unit_or
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import (
     GAP, INF_DIST, RenderConfig, check_supported)
@@ -195,13 +195,10 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
     a span of their own, ``pc.texture.<kind>``."""
     if carried is not None:
         ng = pm.normalize(carried["ng"])
-        ns = pm.normalize(carried["ns"])
-        ns = torch.where(torch.isfinite(ns).all(-1, keepdim=True), ns, ng)
+        ns = unit_or(carried["ns"], ng)
         uv = carried["uv"]
         mat = scene.materials.lookup(carried["mat_id"].long())
-        tang = pm.normalize(carried["tang"])
-        tang = torch.where(torch.isfinite(tang).all(-1, keepdim=True),
-                           tang, 0.0)
+        tang = unit_or(carried["tang"], 0.0)
     else:
         ns, ng, uv, tang, mat = surface_fields(scene, hit, kinds)
     albedo4 = mat.diffuse

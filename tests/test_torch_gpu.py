@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 from prismarine_core_tpu_torch.accel import packet as pk  # noqa: E402
 from prismarine_core_tpu_torch.accel.lbvh import build_bvh  # noqa: E402
 from prismarine_core_tpu_torch.models.geometry import TriangleSoup  # noqa: E402
-from prismarine_core_tpu_torch.ops import cull  # noqa: E402
+from prismarine_core_tpu_torch.ops import cull, dispatch  # noqa: E402
 from prismarine_core_tpu_torch.ops import sb_intersect as si  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import INF_DIST  # noqa: E402
 from prismarine_core_tpu_torch.utils.profiling import counts  # noqa: E402
@@ -168,7 +168,7 @@ def test_walk_ties_and_imbalance_equal_plain(cuda_device, layout, form):
 
 
 @pytest.mark.gpu
-def test_backward_on_the_card(cuda_device, monkeypatch):
+def test_backward_on_the_card(cuda_device, request):
     """One backward through a "mxu" frame on the card: finite, non-zero
     gradients, the mxu kernel launched, and within 1e-3 of the largest
     entry of the same gradients with the plain versions in the kernels'
@@ -205,9 +205,7 @@ def test_backward_on_the_card(cuda_device, monkeypatch):
     launches = counts["pc.kernel.sb_intersect_mxu"]
     g_kernels = grads()
     assert counts["pc.kernel.sb_intersect_mxu"] > launches
-    monkeypatch.setattr(pk, "block_cull", cull.block_cull_plain)
-    monkeypatch.setattr(pk, "pair_cull", cull.pair_cull_plain)
-    monkeypatch.setattr(pk, "sb_intersect_mxu", si.sb_intersect_mxu_plain)
+    request.getfixturevalue("plain_versions")
     g_plain = grads()
     for k, a in g_kernels.items():
         b = g_plain[k]
@@ -254,10 +252,9 @@ def test_entry_points_default_to_the_card(cuda_device):
 
 @pytest.fixture
 def plain_versions(monkeypatch):
-    """Run the packet query on the kernels' plain versions."""
-    monkeypatch.setattr(pk, "block_cull", cull.block_cull_plain)
-    monkeypatch.setattr(pk, "pair_cull", cull.pair_cull_plain)
-    monkeypatch.setattr(pk, "sb_intersect", si.sb_intersect_plain)
+    """Run every kernel wrapper on its plain version: the seam's choice
+    (``ops/dispatch.py``) replaced."""
+    monkeypatch.setattr(dispatch, "choose", lambda x, launch, plain: plain)
 
 
 @pytest.mark.gpu
@@ -559,14 +556,23 @@ def test_env_shadow_query_inputs_equal_plain(cuda_device, monkeypatch):
     carry, _ = step(initial_carry(*generate_rays(cam, cfg, cam_s)),
                     bounce_s[0])
     calls = {"block_cull": [], "pair_cull": [], "sb_intersect": []}
-    for name, fn in (("block_cull", cull.block_cull),
-                     ("pair_cull", cull.pair_cull),
-                     ("sb_intersect", si.sb_intersect)):
-        def rec(*args, _fn=fn, _name=name):
-            calls[_name].append(args)
-            return _fn(*args)
-        monkeypatch.setattr(pk, name, rec)
+    names = {cull.launch_block_cull: "block_cull",
+             cull.launch_pair_cull: "pair_cull",
+             si.launch_sb_intersect: "sb_intersect"}
+    choose = dispatch.choose
+
+    def recording(x, launch, plain):
+        run = choose(x, launch, plain)
+        if launch not in names:
+            return run
+
+        def rec(*args):
+            calls[names[launch]].append(args)
+            return run(*args)
+        return rec
+    monkeypatch.setattr(dispatch, "choose", recording)
     step(carry, bounce_s[1])
+    monkeypatch.setattr(dispatch, "choose", choose)
     # closest rounds 1 and 2, sun shadow, env shadow
     assert [len(v) for v in calls.values()] == [4, 4, 4]
     bargs, pargs, sargs = (calls[k][3] for k in calls)
@@ -747,14 +753,12 @@ def test_bvh_walk_ragged_counts_equal_plain(cuda_device, n_rays, any_hit):
 @pytest.mark.parametrize("knobs", [dict(), dict(sort_rays=True,
                                                 traverse_chunk=1024)],
                          ids=["default", "sorted-chunked"])
-def test_bvh_cornell_frame_equal_plain(cuda_device, knobs, monkeypatch):
+def test_bvh_cornell_frame_equal_plain(cuda_device, knobs, request):
     """The "bvh" cornell frame on the walk kernel (8 launches: a closest
     and a shadow query a bounce, one chunk each at 64x64 = 4,096 rays
     unless chunked) equals its plain-version frame bit for bit."""
-    from prismarine_core_tpu_torch.accel import traverse
     from prismarine_core_tpu_torch.models.camera import Camera
     from prismarine_core_tpu_torch.models.scene import make_cornell_scene
-    from prismarine_core_tpu_torch.ops import bvh_walk as bw
     from prismarine_core_tpu_torch.ops.sampling import make_sample_arrays
     from prismarine_core_tpu_torch.render.integrator import (
         render_with_samples)
@@ -774,7 +778,7 @@ def test_bvh_cornell_frame_equal_plain(cuda_device, knobs, monkeypatch):
     assert n == 8 * (4 if knobs else 1)
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-2
 
-    monkeypatch.setattr(traverse, "bvh_walk", bw.bvh_walk_plain_hits)
+    request.getfixturevalue("plain_versions")
     img_p, stats_p = render_with_samples(scene, cam, cfg, *samples,
                                          with_stats=True)
     assert counts["pc.kernel.bvh_walk"] - launches == n
@@ -799,16 +803,14 @@ def test_edge_gradient_fd_on_card(cuda_device, name):
 
 
 @pytest.mark.gpu
-def test_edge_gradients_equal_plain_walk(cuda_device, monkeypatch):
+def test_edge_gradients_equal_plain_walk(cuda_device, request):
     """A 64x48 ``render_with_edge_gradients`` of the small hall (env NEE,
     every boundary term, 8,192 edge samples, "bvh"): its value equals
     ``render_with_samples`` exactly, and its vertex gradient on the walk
     kernel matches the one on the walk's plain version up to the order of
     the backward's atomic adds (relative L2 <= 1e-5, cosine >= 0.99999)."""
     import torch_edge_cases as ec
-    from prismarine_core_tpu_torch.accel import traverse
     from prismarine_core_tpu_torch.models.camera import Camera
-    from prismarine_core_tpu_torch.ops import bvh_walk as bw
     from prismarine_core_tpu_torch.ops.sampling import make_sample_arrays
     from prismarine_core_tpu_torch.parallel.mesh import (
         apply_params, init_params)
@@ -843,7 +845,7 @@ def test_edge_gradients_equal_plain_walk(cuda_device, monkeypatch):
     assert torch.equal(img, render_with_samples(scene, cam, cfg, cam_s,
                                                 bounce_s))
 
-    monkeypatch.setattr(traverse, "bvh_walk", bw.bvh_walk_plain_hits)
+    request.getfixturevalue("plain_versions")
     img_p, g_p = grads()
     assert torch.equal(img, img_p)
     assert all(bool(torch.isfinite(x).all()) for x in g)

@@ -39,6 +39,7 @@ from prismarine_core_tpu.models.camera import generate_rays  # noqa: E402
 from prismarine_core_tpu.utils.config import RenderConfig as JConfig  # noqa: E402
 from prismarine_core_tpu_torch import interop  # noqa: E402
 from prismarine_core_tpu_torch.accel import packet as tpk  # noqa: E402
+from prismarine_core_tpu_torch.ops import dispatch  # noqa: E402
 from prismarine_core_tpu_torch.ops import sb_intersect as si  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import INF_DIST  # noqa: E402
 from tests.test_packet import _rand_rays  # noqa: E402
@@ -148,12 +149,18 @@ def test_near_frac_changes_round_one(scene):
     targs = (ts.bvh, ts.packets, ts.triangles, torch.tensor(o),
              torch.tensor(d))
     calls = []
-    saved = tpk.sb_intersect
+    choose = dispatch.choose
 
-    def rec(*args):
-        calls.append(int(args[3]))
-        return si.sb_intersect(*args)
-    tpk.sb_intersect = rec
+    def recording(x, launch, plain):
+        run = choose(x, launch, plain)
+        if launch is not si.launch_sb_intersect:
+            return run
+
+        def rec(*args):
+            calls.append(int(args[3]))
+            return run(*args)
+        return rec
+    dispatch.choose = recording
     try:
         round1 = {}
         for nf in (0.0, 0.25, 0.5, 1.0):
@@ -164,7 +171,7 @@ def test_near_frac_changes_round_one(scene):
             assert len(calls) == 2
             round1[nf] = tuple(calls)
     finally:
-        tpk.sb_intersect = saved
+        dispatch.choose = choose
     print("(round-1, round-2) pairs by near_frac", round1)
     assert round1[0.25][0] <= round1[0.5][0] <= round1[1.0][0]
     assert round1[1.0][1] == 0

@@ -48,6 +48,7 @@ from prismarine_core_tpu.ops.intersect import (  # noqa: E402
 from prismarine_core_tpu.ops.sampling import make_sample_arrays  # noqa: E402
 from prismarine_core_tpu_torch import interop  # noqa: E402
 from prismarine_core_tpu_torch.accel import packet as tpk  # noqa: E402
+from prismarine_core_tpu_torch.ops import dispatch  # noqa: E402
 from prismarine_core_tpu_torch.ops import intersect as tix  # noqa: E402
 from prismarine_core_tpu_torch.ops import sb_intersect as si  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import INF_DIST  # noqa: E402
@@ -185,13 +186,19 @@ def test_packet_kernel_t_equals_pallas_single():
     args = tpk._detached(ts.bvh, ts.packets, o, d,
                          torch.full((2048,), INF_DIST))
     pairs = {}
-    saved = tpk.sb_intersect
+    choose = dispatch.choose
 
-    def rec(*a):
-        pairs.setdefault(name, []).append(
-            (int(a[3]), int(si.live_counts(a[2], a[3]).sum())))
-        return si.sb_intersect(*a)
-    tpk.sb_intersect = rec
+    def recording(x, launch, plain):
+        run = choose(x, launch, plain)
+        if launch is not si.launch_sb_intersect:
+            return run
+
+        def rec(*a):
+            pairs.setdefault(name, []).append(
+                (int(a[3]), int(si.live_counts(a[2], a[3]).sum())))
+            return run(*a)
+        return rec
+    dispatch.choose = recording
     try:
         name = "packet"
         t_p, s_p = tpk._run_packet(*args)
@@ -202,7 +209,7 @@ def test_packet_kernel_t_equals_pallas_single():
         t_2, _, _ = tpk._run_packet_pallas(*args, strategy="single",
                                            cull_impl="pallas2")
     finally:
-        tpk.sb_intersect = saved
+        dispatch.choose = choose
     print(f"(pairs, live sub-blocks): {pairs}")
     assert torch.equal(t_p, t_s) and torch.equal(t_p, t_2)
     assert int((s_p != s_s).sum()) <= 3

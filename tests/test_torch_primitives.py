@@ -2,15 +2,30 @@
 sampling formulas, Moller-Trumbore, the sphere and slab tests, the brute
 intersectors and the RGB length.
 
-Integers must be equal.  Floats are held to 1 ulp at the scale of the
-computation: XLA on the CPU contracts a multiply followed by an add into
-one fused multiply-add where torch rounds the product first (checked
-below: the port's cross product equals numpy's unfused float32 formula
-bit for bit, JAX's does not).  Where an output cancels (a cross product
-near zero) its own ulp is meaningless, so the bound is 1 ulp of the
-operands' scale; Moller-Trumbore's t, u, v are numerators times 1/det, so
-their scale is the numerator's terms over |det|, and they chain two
-contractible stages (1 ulp each).
+Integers must be equal.  Floats are held two ways.
+
+Against numpy: the sampling formulas, Moller-Trumbore and the sphere test
+are written out again below in numpy float32, term for term, and the port
+must equal them bit for bit.  numpy rounds every float32 add, multiply,
+divide and compare on its own, correctly, on any host, and the port
+rounds each product before the add that follows (no fused multiply-add;
+checked below on the cross product), so this check does not depend on the
+host.  sqrt, sin and cos are library functions on the port's side,
+torch's CPU kernels, whose last bit depends on the host's vector unit
+(torch's float32 sqrt is not correctly rounded on every host): the numpy
+formulas take the port's own values of them, each held to 1 ulp of the
+float64 value rounded to float32.
+
+Against the JAX package: XLA on the CPU may contract a multiply and the
+add that follows into one fused multiply-add, or not, depending on how it
+compiles for the host, and it evaluates sin and cos with its own
+polynomial.  Each such stage moves its result by up to 1 ulp at the
+stage's scale, and the later stages carry that on, so an output is held
+to 1 ulp per such stage on its chain (``JAX_STAGES``), at the scale of the
+computation.  Where an output cancels (a cross product near zero) its own
+ulp is meaningless, so the scale is the operands'; Moller-Trumbore's t, u,
+v are numerators times 1/det, so their scale is the numerator's terms over
+|det|.
 """
 
 import numpy as np
@@ -31,6 +46,26 @@ from prismarine_core_tpu_torch.ops import sampling as ts  # noqa: E402
 from prismarine_core_tpu_torch.utils import math as tm  # noqa: E402
 
 torch.set_num_threads(1)
+
+F = np.float32
+#: the stages of each output that XLA may contract (a multiply, then an
+#: add) or approximate (sin, cos): its bound in ulps against the JAX
+#: package
+JAX_STAGES = {
+    # the tangent's length, b = n x t, cos and sin, the weighted sum of
+    # the frame, the result's length (n x axis is exact: the axis is 0/1)
+    "cosine_hemisphere": 5,
+    # 1 - up * up, cos and sin
+    "uniform_sphere": 2,
+    # the length
+    "normalize": 1,
+    # dot(l, n)
+    "light_sampling_weight": 1,
+    # the numerator's cross and dot product, and det's, through 1/det
+    "moller_trumbore": 4,
+    # dot(to, d), dot(to, to) - r * r, b * b - 4 * c
+    "intersect_sphere": 3,
+}
 
 
 def assert_ulp(port, ref, scale, n_ulp=1.0):
@@ -53,6 +88,111 @@ def J(*xs):
 def _unit(rng, n):
     v = rng.normal(size=(n, 3)).astype(np.float32)
     return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def assert_bits(port, ref, what):
+    port = np.asarray(port)
+    assert port.dtype == ref.dtype and port.shape == ref.shape, what
+    assert np.array_equal(port.view(np.int32) if port.dtype == F else port,
+                          ref.view(np.int32) if ref.dtype == F else ref), (
+        what, int((port != ref).sum()))
+
+
+# numpy float32 formulas of the port's primitives, term for term
+
+
+def np_dot(a, b):
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def np_cross(a, b):
+    return np.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                     a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                     a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def port_fn(f, g, x):
+    """The port's own ``f`` (``torch.sqrt``, ``torch.cos`` or
+    ``torch.sin``) of the float32 array ``x``, held to 1 ulp of numpy's
+    float64 ``g`` rounded to float32."""
+    y = f(torch.from_numpy(np.ascontiguousarray(x))).numpy()
+    ref = g(x.astype(np.float64)).astype(F)
+    err = (np.abs(y.astype(np.float64) - ref)
+           / np.spacing(np.abs(ref)).astype(np.float64))
+    assert err.max() <= 1.0, (f.__name__, err.max())
+    return y
+
+
+def np_sqrt(x):
+    return port_fn(torch.sqrt, np.sqrt, x)
+
+
+def np_normalize(v):
+    return v / np_sqrt(np.maximum(np_dot(v, v), F(1e-30)))[..., None]
+
+
+def np_around(u2):
+    return u2 * F(2.0) * F(np.pi)
+
+
+def port_cos_sin(around):
+    return (port_fn(torch.cos, np.cos, around),
+            port_fn(torch.sin, np.sin, around))
+
+
+def np_cosine_hemisphere(n, u1, u2):
+    up = np_sqrt(u1)[:, None]
+    over = np_sqrt(np.maximum(F(1.0) - u1, F(0.0)))[:, None]
+    c, s = (x[:, None] for x in port_cos_sin(np_around(u2)))
+    third = F(0.57735026)
+    eye = np.eye(3, dtype=F)
+    perp0 = np.where(np.abs(n[:, 0:1]) < third, eye[0],
+                     np.where(np.abs(n[:, 1:2]) < third, eye[1], eye[2]))
+    t = np_normalize(np_cross(n, perp0))
+    b = np_cross(n, t)
+    return np_normalize(n * up + t * c * over + b * s * over)
+
+
+def np_uniform_sphere(u1, u2):
+    up = u1 * F(2.0) - F(1.0)
+    over = np_sqrt(np.maximum(F(1.0) - up * up, F(0.0)))
+    c, s = port_cos_sin(np_around(u2))
+    return np.stack([up, c * over, s * over], -1)
+
+
+def np_light_sampling_weight(ldir, n, radius, dist):
+    c = np.clip(np_dot(ldir, n) * F(2.0)
+                * (radius / np.maximum(dist, F(1e-6))) ** 2, F(0.0), F(1.0))
+    return F(1.0) - np_sqrt(np.maximum(F(1.0) - c, F(1e-12)))
+
+
+def np_moller_trumbore(o, d, v0, v1, v2):
+    e1, e2 = v1 - v0, v2 - v0
+    p = np_cross(d, e2)
+    det = np_dot(e1, p)
+    inv = F(1.0) / np.where(np.abs(det) < F(1e-10), F(1e-10), det)
+    s = o - v0
+    u = np_dot(s, p) * inv
+    q = np_cross(s, e1)
+    v = np_dot(d, q) * inv
+    t = np_dot(e2, q) * inv
+    ok = ((np.abs(det) >= F(1e-10)) & (u >= F(0.0)) & (v >= F(0.0))
+          & (u + v <= F(1.0)) & (t > F(0.0005)))
+    return np.where(ok, t, F(10000.0)), u, v, ok
+
+
+def np_intersect_sphere(o, d, center, radius):
+    to = o - center
+    b = F(2.0) * np_dot(to, d)
+    c = np_dot(to, to) - radius * radius
+    disc = b * b - F(4.0) * c
+    sq = np_sqrt(np.where(disc > F(0.0), disc, F(1.0)))
+    t1 = F(0.5) * (-b - sq)
+    t2 = F(0.5) * (-b + sq)
+    mn, mx = np.minimum(t1, t2), np.maximum(t1, t2)
+    t = np.where(mx >= F(0.0), np.where(mn >= F(0.0), mn, mx), F(10000.0))
+    return np.where(disc > F(0.0), t, F(10000.0))
 
 
 def test_morton_codes_equal():
@@ -81,20 +221,30 @@ def test_port_cross_is_unfused_float32():
 
 
 def test_sampling_formulas_match_jax():
+    """Equal to the numpy formulas bit for bit; within their stages of
+    the JAX package (``JAX_STAGES``)."""
     rng = np.random.default_rng(2)
     n = _unit(rng, 20000)
     u1, u2 = rng.random((2, 20000)).astype(np.float32)
-    assert_ulp(ts.cosine_hemisphere(*T(n, u1, u2)),
-               js.cosine_hemisphere(*J(n, u1, u2)), scale=1.0)
-    assert_ulp(ts.uniform_sphere(*T(u1, u2)),
-               js.uniform_sphere(*J(u1, u2)), scale=1.0)
-    assert_ulp(tm.normalize(*T(3.0 * n)), jm.normalize(*J(3.0 * n)),
-               scale=1.0)
     radius = rng.uniform(0.5, 2.0, 20000).astype(np.float32)
     dist = rng.uniform(1.0, 100.0, 20000).astype(np.float32)
     m = n[::-1].copy()
-    assert_ulp(ts.light_sampling_weight(*T(n, m, radius, dist)),
-               js.light_sampling_weight(*J(n, m, radius, dist)), scale=1.0)
+    cases = {
+        "cosine_hemisphere": (ts.cosine_hemisphere, js.cosine_hemisphere,
+                              np_cosine_hemisphere, (n, u1, u2)),
+        "uniform_sphere": (ts.uniform_sphere, js.uniform_sphere,
+                           np_uniform_sphere, (u1, u2)),
+        "normalize": (tm.normalize, jm.normalize, np_normalize,
+                      (F(3.0) * n,)),
+        "light_sampling_weight": (
+            ts.light_sampling_weight, js.light_sampling_weight,
+            np_light_sampling_weight, (n, m, radius, dist)),
+    }
+    for name, (port_fn, jax_fn, np_fn, args) in cases.items():
+        port = port_fn(*T(*args)).numpy()
+        assert_bits(port, np_fn(*args), name)
+        assert_ulp(port, jax_fn(*J(*args)), scale=1.0,
+                   n_ulp=JAX_STAGES[name])
 
 
 def test_moller_trumbore_and_sphere_match_jax():
@@ -107,20 +257,24 @@ def test_moller_trumbore_and_sphere_match_jax():
         *J(o, d, v0, v1, v2)))
     tt, ut, vt, okt = (x.numpy() for x in ti.moller_trumbore(
         *T(o, d, v0, v1, v2)))
+    for k, p, ref in zip(("t", "u", "v", "ok"), (tt, ut, vt, okt),
+                         np_moller_trumbore(o, d, v0, v1, v2)):
+        assert_bits(p, ref, f"moller_trumbore {k}")
     np.testing.assert_array_equal(okt, okj)
     det = np.abs(np.einsum("ij,ij->i", v1 - v0,
                            np.cross(d, v2 - v0))).astype(np.float64)
-    # numerator terms are products of coordinates of magnitude <= 5;
-    # each output chains two contractible stages (a cross product, then a
-    # dot product), so the bound is 1 ulp per stage
+    # numerator terms are products of coordinates of magnitude <= 5
     scale = 25.0 / np.maximum(det, 1e-6)
     for p, j in ((tt, tj), (ut, uj), (vt, vj)):
-        assert_ulp(p[okt], j[okt], scale=scale[okt], n_ulp=2.0)
+        assert_ulp(p[okt], j[okt], scale=scale[okt],
+                   n_ulp=JAX_STAGES["moller_trumbore"])
 
     c = rng.uniform(-1, 1, (r, 3)).astype(np.float32)
     rad = rng.uniform(0.5, 2.0, r).astype(np.float32)
-    assert_ulp(ti.intersect_sphere(*T(o, d, c, rad)),
-               ji.intersect_sphere(*J(o, d, c, rad)), scale=1.0)
+    port = ti.intersect_sphere(*T(o, d, c, rad)).numpy()
+    assert_bits(port, np_intersect_sphere(o, d, c, rad), "intersect_sphere")
+    assert_ulp(port, ji.intersect_sphere(*J(o, d, c, rad)), scale=1.0,
+               n_ulp=JAX_STAGES["intersect_sphere"])
 
 
 @pytest.mark.parametrize("n_tris,r,block", [(50, 64, 16), (300, 333, 64)])

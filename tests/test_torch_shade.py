@@ -6,10 +6,10 @@ counts bit for bit as the inline code did before the move (a copy of which
 is kept here) over bounces 0-3 of the small hall under "bvh" and "pallas",
 with Russian roulette, env NEE, no direct light, no light at all, an
 interlace mask, glossy, metallic and transmissive materials and the
-textured stack; the kernels' route (``_Fused`` with the plain version as
-its launch) gives the plain version's outputs, leaves out of the graph
-what the plain version does not differentiate, and gives a render's
-gradients as the plain route does.
+textured stack; the kernels' route through the seam (``ops/dispatch.py``,
+the plain version standing in for each launch) gives the plain version's
+outputs, leaves out of the graph what the plain version does not
+differentiate, and gives a render's gradients as the plain route does.
 
 On the card (``gpu``, skipped here): both kernels equal their plain
 versions bit for bit on every output (the 1280x720 hall's bounces under
@@ -44,6 +44,7 @@ from prismarine_core_tpu_torch.utils import math as pm  # noqa: E402
 from prismarine_core_tpu_torch.utils.config import (  # noqa: E402
     GAP, INF_DIST, RenderConfig)
 from prismarine_core_tpu_torch.utils.profiling import counts, spanned  # noqa: E402
+from test_torch_surface import seam  # noqa: E402
 
 CPU = "cpu"
 CARRY = ("o", "d", "beta", "radiance", "alive", "prev_pdf", "miss_dir",
@@ -336,38 +337,44 @@ def first_carry(scene, cam, cfg, seed, dev):
     return it.initial_carry(o, d, active), bounce_s
 
 
+def is_shading(launch):
+    """Is ``launch`` the shading's or the NEE resolve's?"""
+    return (launch is sh.launch_nee_resolve
+            or getattr(launch, "func", None) is sh.launch_shade)
+
+
 @contextlib.contextmanager
 def recorded():
-    """Each ``shade`` and ``nee_resolve`` call of the bounce loop: (spec,
-    inputs, outputs) and (inputs, output)."""
-    saved = it.shade, it.nee_resolve
+    """Each ``shade`` and ``nee_resolve`` launch of the bounce loop:
+    (spec, inputs, outputs) and (inputs, output)."""
     seen = dict(shade=[], resolve=[])
 
-    def run_shade(spec, *xs):
-        out = saved[0](spec, *xs)
-        seen["shade"].append((spec, xs, out))
-        return out
+    def pick(x, launch, plain, choose):
+        run = choose(x, launch, plain)
+        if not is_shading(launch):
+            return run
 
-    def run_resolve(*xs):
-        out = saved[1](*xs)
-        seen["resolve"].append((xs, out))
-        return out
-    it.shade, it.nee_resolve = run_shade, run_resolve
-    try:
+        def record(*xs):
+            out = run(*xs)
+            if launch is sh.launch_nee_resolve:
+                seen["resolve"].append((xs, out[0]))
+            else:
+                seen["shade"].append((launch.args[0], xs,
+                                      sh._complete(out, xs)))
+            return out
+        return record
+    with seam(pick):
         yield seen
-    finally:
-        it.shade, it.nee_resolve = saved
 
 
-@contextlib.contextmanager
+def plain_shading(x, launch, plain, choose):
+    """A ``seam`` choice: the shading on its plain versions."""
+    return plain if is_shading(launch) else choose(x, launch, plain)
+
+
 def plain_route():
     """The bounce loop's shading on the plain versions."""
-    saved = it.shade, it.nee_resolve
-    it.shade, it.nee_resolve = sh.shade_plain, sh.nee_resolve_plain
-    try:
-        yield
-    finally:
-        it.shade, it.nee_resolve = saved
+    return seam(plain_shading)
 
 
 def emulated(plain):
@@ -379,26 +386,23 @@ def emulated(plain):
     return launch
 
 
-def emulated_shade(spec, *xs):
-    """``sh.shade``'s route through ``_Fused`` on any device."""
-    plain = sh._shade_fns(spec)[1]
-    return sh._complete(sh.fused(emulated(plain), plain, *xs), xs)
+def emulated_shading(x, launch, plain, choose):
+    """A ``seam`` choice: the shading's launches, on any device, stood in
+    for by their plain versions (through ``_Fused`` under grad)."""
+    return emulated(plain) if is_shading(launch) else choose(x, launch,
+                                                             plain)
 
 
-@contextlib.contextmanager
 def emulated_route():
-    """The bounce loop's shading through ``_Fused`` on any device, the
-    plain version standing in for each kernel."""
-    saved = it.shade, it.nee_resolve
+    """The bounce loop's shading through the seam's launch route on any
+    device, the plain version standing in for each kernel."""
+    return seam(emulated_shading)
 
-    def run_resolve(*xs):
-        return sh.fused(emulated(sh._resolve_plain), sh._resolve_plain,
-                        *xs)[0]
-    it.shade, it.nee_resolve = emulated_shade, run_resolve
-    try:
-        yield
-    finally:
-        it.shade, it.nee_resolve = saved
+
+def emulated_shade(spec, *xs):
+    """``sh.shade`` on the launch route on any device."""
+    with emulated_route():
+        return sh.shade(spec, *xs)
 
 
 def random_lanes(r, seed, dev, layout="rows"):
@@ -524,8 +528,9 @@ def test_bounces_same_as_before_the_move(case):
 @pytest.mark.parametrize("spec", sorted(SPECS))
 @pytest.mark.parametrize("layout", ["rows", "strided"])
 def test_function_route_gives_the_plain_outputs(spec, layout):
-    """Random lanes through every branch: ``_Fused`` with the plain
-    version as its launch gives the plain version's outputs bit for bit,
+    """Random lanes through every branch: the seam's launch route (its
+    ``_Fused`` under grad) with the plain version as the launch gives the
+    plain version's outputs bit for bit,
     and exactly its outputs that require grad are differentiable (the
     others are not in the graph)."""
     spec = SPECS[spec]
@@ -579,10 +584,11 @@ def _grad_render(route):
 
 
 def test_render_gradients_through_the_function_route():
-    """A render under grad through ``_Fused`` (the plain version standing
-    in for the kernels) gives the plain route's loss bit for bit and its
-    gradients of the materials, the light colour and a vertex field to a
-    millionth (the backward sums a gradient's parts in another order)."""
+    """A render under grad through the seam's ``_Fused`` (the plain
+    version standing in for the kernels) gives the plain route's loss bit
+    for bit and its gradients of the materials, the light colour and a
+    vertex field to a millionth (the backward sums a gradient's parts in
+    another order)."""
     loss_p, g_p = _grad_render(contextlib.nullcontext)
     loss_f, g_f = _grad_render(emulated_route)
     assert_same(loss_f, loss_p, "loss")

@@ -4,9 +4,10 @@ On the CPU: the module imports without a card; ``_interpolate_surface``
 gives the same fields as the code it held before the move into
 ``surface_fields_plain`` (a copy of which is kept here); under grad with a
 soup or material tensor that requires grad, a render's gradients are the
-ones that code gives; the kernel's route (``sf.fused`` with the kernel's
-torch emulation as its launch) gives the plain version's fields and
-gradients bit for bit, alone and through a whole render; the packed
+ones that code gives; the kernel's route through the seam
+(``ops/dispatch.py``, the kernel's torch emulation standing in for its
+launch) gives the plain version's fields and gradients bit for bit, alone
+and through a whole render; the packed
 records (their layout, read as the kernel reads them, and their rebuild
 after an in-place edit).
 
@@ -24,6 +25,7 @@ without the JAX package:
 
 import contextlib
 import dataclasses
+import functools
 import types
 
 import numpy as np
@@ -38,6 +40,7 @@ from prismarine_core_tpu_torch.models.materials import (  # noqa: E402
 from prismarine_core_tpu_torch.models.scene import make_cornell_scene  # noqa: E402
 from prismarine_core_tpu_torch.models.textures import (  # noqa: E402
     sample_bicubic, sample_bilinear)
+from prismarine_core_tpu_torch.ops import dispatch  # noqa: E402
 from prismarine_core_tpu_torch.ops import surface as sf  # noqa: E402
 from prismarine_core_tpu_torch.ops.intersect import Hit  # noqa: E402
 from prismarine_core_tpu_torch.ops.sampling import make_sample_arrays  # noqa: E402
@@ -272,14 +275,33 @@ def _grad_case(param):
 
 
 @contextlib.contextmanager
-def surface_route(fields):
-    """The bounce loop's surface from ``fields(scene, hit, kinds)``."""
-    saved = it.surface_fields
-    it.surface_fields = fields
+def seam(pick):
+    """Every kernel wrapper's choice at the seam (``ops/dispatch.py``)
+    made by ``pick(x, launch, plain, choose)`` in the block, ``choose``
+    the seam's own."""
+    choose = dispatch.choose
+    dispatch.choose = lambda x, launch, plain: pick(x, launch, plain, choose)
     try:
         yield
     finally:
-        it.surface_fields = saved
+        dispatch.choose = choose
+
+
+def is_surface(launch):
+    return getattr(launch, "func", None) is sf.launch_surface
+
+
+def emulated_surface(x, launch, plain, choose):
+    """A ``seam`` choice: the surface's launch, on any device, stood in for
+    by the kernel's torch emulation (``emulated_launch``)."""
+    if is_surface(launch):
+        return functools.partial(emulated_launch, *launch.args)
+    return choose(x, launch, plain)
+
+
+def plain_surface(x, launch, plain, choose):
+    """A ``seam`` choice: the surface on its plain version."""
+    return plain if is_surface(launch) else choose(x, launch, plain)
 
 
 @contextlib.contextmanager
@@ -315,41 +337,51 @@ def test_gradients_are_the_torch_paths(param):
     assert grad.abs().sum() > 0
 
 
-def emulated_launch(scene, hit, kinds=None):
-    """``csrc/surface.cu``'s fields as ``emulate_kernel`` computes them,
-    each in a tensor of its own: a ``launch`` for ``sf.fused``."""
+def emulated_launch(stub, kinds, *xs):
+    """``csrc/surface.cu``'s outputs as ``emulate_kernel`` computes them
+    from the seam's tensors (``sf._tensors``), each in a tensor of its
+    own: the surface's launch on the CPU."""
+    n = len(sf._SOUP_FIELDS)
+    scene = types.SimpleNamespace(
+        triangles=types.SimpleNamespace(**dict(zip(sf._SOUP_FIELDS, xs))),
+        materials=MaterialTable(*xs[n:-3]),
+        textures=types.SimpleNamespace(stub=stub))
+    hit = Hit(None, *xs[-3:])
     ns, ng, uv, tang, mat = emulate_kernel(scene, hit, kinds)
-    return (ns, ng, uv.clone(), tang, MaterialTable(
-        *(getattr(mat, f).clone() for f in _ARRAY_FIELDS)))
+    return (ns, ng, uv.clone(), tang,
+            *(getattr(mat, f).clone() for f in _ARRAY_FIELDS))
 
 
 @pytest.mark.parametrize("case", ["no-grad-mode", "nothing-requires-grad",
                                   "v0", "n2", "t1", "diffuse", "ior",
-                                  "hit.u", "hit.v"])
+                                  "hit.u", "hit.v", "vertices"])
 def test_kernel_rule(case):
     """The kernel serves the surface whatever the grad state: its route
-    (``sf.fused``, here with the kernel's torch emulation as the launch)
-    gives the plain version's fields, each differentiable exactly where
-    the plain version's is (on a stub and on a textured scene), and,
-    where a read tensor requires grad under grad mode, the plain
-    version's gradient of a weighted sum of every field, bit for bit (the
-    backward differentiates the plain version run again).  On CPU tensors
-    ``surface_fields`` is the plain version and launches nothing."""
+    through the seam (here with the kernel's torch emulation as the
+    launch) gives the plain version's fields, each differentiable exactly
+    where the plain version's is (on a stub and on a textured scene; the
+    texture ids and the stub's zero uv never), and, where read tensors
+    require grad under grad mode ("vertices": all three of the soup's),
+    the plain version's gradient of a weighted sum of every field, bit
+    for bit (the backward differentiates the plain version run again).
+    On CPU tensors ``surface_fields`` is the plain version and launches
+    nothing."""
     for textured in (False, True):
         scene, hit = synthetic(30, 200, 2, CPU, textured=textured)
         kinds = (True, False, True, True)
         soup, mats = scene.triangles, scene.materials
-        target = {"v0": soup.v0, "n2": soup.n2, "t1": soup.t1,
-                  "diffuse": mats.diffuse, "ior": mats.ior, "hit.u": hit.u,
-                  "hit.v": hit.v}.get(case)
-        if case == "no-grad-mode":
-            target = soup.v0
-        if target is not None:
+        targets = {"v0": [soup.v0], "n2": [soup.n2], "t1": [soup.t1],
+                   "diffuse": [mats.diffuse], "ior": [mats.ior],
+                   "hit.u": [hit.u], "hit.v": [hit.v],
+                   "vertices": [soup.v0, soup.v1, soup.v2],
+                   "no-grad-mode": [soup.v0]}.get(case, [])
+        for target in targets:
             target.requires_grad_(True)
         before = counts["pc.kernel.surface"]
         with (torch.no_grad() if case == "no-grad-mode"
               else contextlib.nullcontext()):
-            got = sf.fused(emulated_launch, scene, hit, kinds)
+            with seam(emulated_surface):
+                got = sf.surface_fields(scene, hit, kinds)
             plain = sf.surface_fields_plain(scene, hit, kinds)
             on_cpu = sf.surface_fields(scene, hit, kinds)
         assert counts["pc.kernel.surface"] == before
@@ -363,7 +395,10 @@ def test_kernel_rule(case):
             # differentiable where the plain version's output is, and only
             # there (no shading downstream of the others is differentiated)
             assert x.requires_grad == y.requires_grad, (textured, name)
-    flows = target is not None and case != "no-grad-mode"
+        assert not any(getattr(got[4], f).requires_grad
+                       for f in _ARRAY_FIELDS[5:])
+        assert textured or not got[2].requires_grad
+    flows = bool(targets) and case != "no-grad-mode"
     assert got[0].requires_grad == (flows and case not in ("t1", "diffuse",
                                                            "ior"))
     if not flows:
@@ -374,24 +409,24 @@ def test_kernel_rule(case):
         return sum((x * torch.rand(x.shape, generator=gen)).sum()
                    for x in flat_fields(fields)
                    if x is not None and x.is_floating_point())
-    (g_got,) = torch.autograd.grad(weighted(got), [target])
+    g_got = torch.autograd.grad(weighted(got), targets)
     gen.manual_seed(9)
-    (g_plain,) = torch.autograd.grad(weighted(plain), [target])
-    assert torch.equal(bits(g_got), bits(g_plain))
-    assert g_plain.abs().sum() > 0
+    g_plain = torch.autograd.grad(weighted(plain), targets)
+    for a, b in zip(g_got, g_plain):
+        assert torch.equal(bits(a), bits(b))
+        assert b.abs().sum() > 0
 
 
 @pytest.mark.parametrize("param", ["triangles.v0", "triangles.n1",
                                    "materials.diffuse", "materials.emissive"])
 def test_render_gradients_through_the_kernels_route(param):
-    """A render whose every surface takes the kernel's route (``sf.fused``
-    with the kernel's torch emulation as the launch) gives the plain
+    """A render whose every surface takes the kernel's route through the
+    seam (the kernel's torch emulation as the launch) gives the plain
     render's image and the gradient of its sum bit for bit."""
     scene, cam, cfg, cam_s, bounce_s, leaf = _grad_case(param)
     img = it.render_with_samples(scene, cam, cfg, cam_s, bounce_s)
     (grad,) = torch.autograd.grad(img.sum(), [leaf])
-    with surface_route(lambda s, h, k=None: sf.fused(emulated_launch, s, h,
-                                                     k)):
+    with seam(emulated_surface):
         img_k = it.render_with_samples(scene, cam, cfg, cam_s, bounce_s)
         (grad_k,) = torch.autograd.grad(img_k.sum(), [leaf])
     assert img_k.grad_fn is not None
@@ -515,20 +550,23 @@ def frame_samples(cfg, dev, seed=7):
 
 @contextlib.contextmanager
 def compared_bounces():
-    """Each ``surface_fields`` call of the bounce loop, with the plain
-    version's fields on the same hit beside the kernel's."""
-    saved = it.surface_fields
+    """Each surface launch of the bounce loop, its hit and fields with the
+    plain version's fields on the same inputs beside them."""
     seen = []
 
-    def run(scene, hit, kinds=None):
-        out = saved(scene, hit, kinds)
-        seen.append((hit, out, sf.surface_fields_plain(scene, hit, kinds)))
-        return out
-    it.surface_fields = run
-    try:
+    def pick(x, launch, plain, choose):
+        run = choose(x, launch, plain)
+        if not is_surface(launch):
+            return run
+
+        def recorded(*xs):
+            out = run(*xs)
+            seen.append((Hit(None, *xs[-3:]), sf._fields(out),
+                         sf._fields(plain(*xs))))
+            return out
+        return recorded
+    with seam(pick):
         yield seen
-    finally:
-        it.surface_fields = saved
 
 
 @pytest.mark.gpu
@@ -620,7 +658,7 @@ def test_frames_bit_identical_between_the_paths(hall, intersector):
     assert img_grad.requires_grad
     assert counts["pc.kernel.surface"] - k0 == 4
     k0 = counts["pc.kernel.surface"]
-    with surface_route(sf.surface_fields_plain):
+    with seam(plain_surface):
         img_plain = it.render_with_samples(scene, cam, cfg, *samples)
     assert counts["pc.kernel.surface"] == k0
     assert torch.equal(bits(img), bits(img_plain))
@@ -654,7 +692,7 @@ def test_kernel_in_a_train_step(cuda_device):
     assert counts["pc.kernel.surface"] - k0 == 4
     assert counts["pc.surface"] - s0 == 4
     k0 = counts["pc.kernel.surface"]
-    with surface_route(sf.surface_fields_plain):
+    with seam(plain_surface):
         p_a, loss_a = step(start, *args)
         p_b, _ = step(start, *args)
     assert counts["pc.kernel.surface"] == k0
