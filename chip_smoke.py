@@ -273,12 +273,20 @@ Phases (any failure exits non-zero):
                 times in alternating turns against the plain versions',
                 their bytes bounds and shares, their registers; one 4 spp
                 frame launching each once a bounce.  Every phase's launch
-                reader checks one shading launch in each bounce span.
+                reader checks one shading launch in each bounce span;
+ 22. texture  — the texture kernel (csrc/texture.cu, phase_texture) at the
+                bounce-1 hits of the benchmark's textured cell
+                (hall720-bvh-textured, bench_port/): every field equal bit
+                for bit to texture_plain's, its time in alternating turns
+                against the plain version's, its bytes bound (each fetch's
+                four texels; and each distinct quad row read once) and
+                its share of it, its registers; one 4 spp frame launching
+                it once a bounce.
 
 The build's ptxas lines (registers, shared memory and spills of each
 kernel, by name) go to the log.  The last lines are the kernel table as
-JSON (the five ported kernels, bvh_walk, surface_fields, shade and
-nee_resolve, with their
+JSON (the five ported kernels, bvh_walk, surface_fields, shade,
+nee_resolve and texture_fields, with their
 launches on each path, the sharded, default-cull and per-process ones
 included, and
 block_cull's 2,048-box time and bound beside its 256-box ones; and every
@@ -1117,9 +1125,11 @@ def phase_frame_mt2(scene, cam, cfg, img, samples, n_frames=3):
 @contextlib.contextmanager
 def texture_ranges():
     """Profiler ranges around the textured frame's fetches (TEX_FETCH:
-    the integrator's ``sample_bilinear`` / ``sample_bicubic``) and the row
-    gathers inside them (TEX_GATHER: the texel rows and the size table),
-    by wrappers set in the functions' place for one profiled frame."""
+    the integrator's ``texture_fields``, the texture kernel's launch on
+    the card) and the row gathers of the plain fetch inside them
+    (TEX_GATHER: the texel rows and the size table, where the plain
+    version runs), by wrappers set in the functions' place for one
+    profiled frame."""
     from torch.profiler import record_function
     from prismarine_core_tpu_torch.models import textures as tx
     from prismarine_core_tpu_torch.render import integrator as it
@@ -1129,17 +1139,14 @@ def texture_ranges():
             with record_function(name):
                 return fn(*args)
         return run
-    saved = (it.sample_bilinear, it.sample_bicubic, tx._texel_rows,
-             tx._tex_size)
-    it.sample_bilinear = ranged(TEX_FETCH, saved[0])
-    it.sample_bicubic = ranged(TEX_FETCH, saved[1])
-    tx._texel_rows = ranged(TEX_GATHER, saved[2])
-    tx._tex_size = ranged(TEX_GATHER, saved[3])
+    saved = (it.texture_fields, tx._texel_rows, tx._tex_size)
+    it.texture_fields = ranged(TEX_FETCH, saved[0])
+    tx._texel_rows = ranged(TEX_GATHER, saved[1])
+    tx._tex_size = ranged(TEX_GATHER, saved[2])
     try:
         yield
     finally:
-        (it.sample_bilinear, it.sample_bicubic, tx._texel_rows,
-         tx._tex_size) = saved
+        it.texture_fields, tx._texel_rows, tx._tex_size = saved
 
 
 def fetch_times(scene, stub_scene, cam, cfg, dev):
@@ -1150,8 +1157,8 @@ def fetch_times(scene, stub_scene, cam, cfg, dev):
     gather alone beside its bytes bound (each row read and written once,
     the index read once).  Both surfaces take their fields at the hit from
     the surface kernel (``csrc/surface.cu``), so the stub's time is that
-    kernel's, and the textured time less the stub's is the texture chain
-    (its fetches and filters, and the kernel's uv and tangent)."""
+    kernel's, and the textured time less the stub's is the texture maps'
+    (the texture kernel, and the surface kernel's uv and tangent)."""
     import torch
     from prismarine_core_tpu_torch.models import textures as tx
     from prismarine_core_tpu_torch.models.camera import generate_rays
@@ -1651,6 +1658,125 @@ def phase_shade(scene, cam, cfg, dev):
         f"({rbytes} B), share {out['resolve_bound_share']:.4f}; "
         f"{launches} / {resolves} launches a 4-spp frame; "
         f"{out['seconds']:.1f} s")
+    return out
+
+
+#: bytes the texture kernel must move a lane (ops/texture.py): the uv (8),
+#: and per bound kind its texture id (4) and the fields it modulates read
+#: and written (bump: the shading normal, 24; diffuse: the albedo, 32;
+#: emissive: the emission, 24; specular: roughness and metallic, 16); per
+#: fetch (a lane whose id of the kind is >= 0) its four texels (64), and
+#: the tangent for a bump fetch (12)
+TEX_UV_BYTES, TEX_ID_BYTES, TEX_FETCH_BYTES, TEX_TANG_BYTES = 8, 4, 64, 12
+TEX_FIELD_BYTES = {"diffuse": 32, "specular": 16, "emissive": 24,
+                   "bump": 24}
+TEX_KINDS = ("diffuse", "specular", "emissive", "bump")
+
+
+def quad_rows(stack, ids, uv):
+    """The flat index into the stack's corner quads viewed as [N*H*W, 16]
+    of the row each lane's bilinear fetch reads, for the lanes whose id is
+    >= 0 (``models/textures.py:sample_bilinear``'s addressing)."""
+    import torch
+    from prismarine_core_tpu_torch.models import textures as tx
+    n, h, w, _ = stack.data.shape
+    keep = ids >= 0
+    tid = torch.clamp(ids[keep], 0, n - 1).long()
+    wi, hi = tx._tex_size(stack, tid)
+    x0 = torch.floor(torch.remainder(uv[keep, 0], 1.0) * wi - 0.5)
+    y0 = torch.floor(torch.remainder(uv[keep, 1], 1.0) * hi - 0.5)
+    return ((tid * h + torch.remainder(y0.to(torch.int32), hi).long()) * w
+            + torch.remainder(x0.to(torch.int32), wi).long())
+
+
+def phase_texture(dev):
+    """The texture kernel at the bounce-1 hits of the benchmark's textured
+    cell (hall720-bvh-textured: 3,686,400 lanes; a diffuse, a specular
+    and a bump map of 1024x1024 on each of six materials): equal to its
+    plain version bit for bit on every field; CUDA-event times of both in
+    alternating turns; the bytes bound (each fetch's four texels) and the
+    kernel's share of it, beside the bound with each distinct quad row
+    the fetches read counted once; its registers; one 4-spp frame
+    launching it once a bounce."""
+    import torch
+    from bench_port import harness
+    from prismarine_core_tpu_torch import _build
+    from prismarine_core_tpu_torch.ops import texture as tx
+    from prismarine_core_tpu_torch.ops.sampling import (
+        make_coherent_sample_arrays)
+    from prismarine_core_tpu_torch.ops.surface import surface_fields
+    from prismarine_core_tpu_torch.render.integrator import (
+        closest_hit, render_with_samples)
+    from prismarine_core_tpu_torch.utils.config import INF_DIST
+    from prismarine_core_tpu_torch.utils.profiling import counts
+    t0 = time.perf_counter()
+    cell = harness.load_cell("hall720-bvh-textured.frames", root=REPO)
+    prog = harness.build_program(cell, harness.scene_arrays(cell), dev)
+    scene, cam, cfg = prog.scene, prog.camera, prog.cfg
+    kinds = scene.materials.kinds_bound
+    _, _, _, carry1, _ = first_bounce(scene, cam, cfg, dev)
+    hit = closest_hit(scene, carry1[0], carry1[1], cfg,
+                      t_cap=torch.where(carry1[4], INF_DIST, 0.0))
+    ns, _, uv, tang, mat = surface_fields(scene, hit, kinds)
+    args = (scene.textures, cfg.texture_filter, kinds, ns, tang, uv, mat)
+    k0 = counts["pc.kernel.texture"]
+    got = tx.texture_fields(*args)
+    want = tx.texture_plain(*args)
+    torch.cuda.synchronize()
+    require(counts["pc.kernel.texture"] - k0 == 1,
+            "texture_fields did not launch the kernel once")
+    for k, a, b in zip(("ns", "albedo", "emissive", "roughness",
+                        "metallic"), got, want):
+        require(a.shape == b.shape
+                and torch.equal(a.contiguous().view(torch.int32),
+                                b.contiguous().view(torch.int32)),
+                f"texture kernel != plain on {k}")
+    ms, turns = alternating_ms({"kernel": lambda: tx.texture_fields(*args),
+                                "plain": lambda: tx.texture_plain(*args)})
+    r = int(uv.shape[0])
+    bound_kinds = [k for k, b in zip(TEX_KINDS, kinds) if b]
+    fetches = {k: int((getattr(mat, f"tex_{k}") >= 0).sum())
+               for k in bound_kinds}
+    nbytes = (r * (TEX_UV_BYTES + sum(TEX_ID_BYTES + TEX_FIELD_BYTES[k]
+                                      for k in bound_kinds))
+              + TEX_FETCH_BYTES * sum(fetches.values())
+              + TEX_TANG_BYTES * fetches.get("bump", 0))
+    bound_ms, bound_by = bound(0, nbytes)
+    distinct = int(torch.unique(torch.cat([
+        quad_rows(scene.textures, getattr(mat, f"tex_{k}"), uv)
+        for k in bound_kinds])).numel())
+    dbytes = nbytes - TEX_FETCH_BYTES * (sum(fetches.values()) - distinct)
+    dbound_ms, _ = bound(0, dbytes)
+    lib_path = _build.library_path()
+    ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt")
+    build = ([line for line in ptxas_lines(ptxas.read_text())
+              if line.startswith("texture_fields_kernel")]
+             if ptxas.exists() else [])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    samples = make_coherent_sample_arrays(gen, cfg, block=(64, 64))
+    k0, s0 = counts["pc.kernel.texture"], counts["pc.surface"]
+    render_with_samples(scene, cam, cfg, *samples)
+    torch.cuda.synchronize()
+    launches = counts["pc.kernel.texture"] - k0
+    require(launches == BOUNCES == counts["pc.surface"] - s0,
+            f"texture kernel launches in a 4-spp frame: {launches}")
+    out = dict(lanes=r, missed=int((hit.tri < 0).sum()), kinds=kinds,
+               fetches=fetches, ms=ms["kernel"], plain_ms=ms["plain"],
+               turns_ms=turns, bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms["kernel"], bytes=nbytes,
+               distinct_rows=distinct, distinct_bound_ms=dbound_ms,
+               distinct_bound_share=dbound_ms / ms["kernel"],
+               build=build, launches_frame=launches,
+               seconds=time.perf_counter() - t0)
+    for line in build:
+        log(f"[texture] {line}")
+    log(f"[texture] {r} bounce-1 lanes ({out['missed']} missed), fetches "
+        f"{fetches} == plain on every field; kernel {ms['kernel']:.4f} ms, "
+        f"plain {ms['plain']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes} B), share {out['bound_share']:.4f}; {distinct} distinct "
+        f"quad rows: bound {dbound_ms:.4f} ms, share "
+        f"{out['distinct_bound_share']:.4f}; {launches} launches a 4-spp "
+        f"frame; {out['seconds']:.1f} s")
     return out
 
 
@@ -3842,6 +3968,7 @@ def main() -> int:
     examples = phase_examples(dev)
     surface = phase_surface(scene, cam, cfg, dev)
     shading = phase_shade(scene, cam, cfg, dev)
+    texturing = phase_texture(dev)
     step_errs = {k: max(v, textured["step_errs"].get(k, 0.0),
                         env["step_errs"].get(k, 0.0),
                         app["rounds"]["max_abs_err"].get(k, 0.0),
@@ -3985,6 +4112,21 @@ def main() -> int:
                        if b.startswith(kname + "_kernel")],
              "shape": "the bounce-1 step of the bench frame at 4 spp "
                       "under \"bvh\" (3,686,400 lanes), sphere NEE"})
+    # the port's own texture kernel (the JAX package fetches in XLA): the
+    # bounce-1 hits of the benchmark's textured cell
+    rows.append(
+        {"name": "texture_fields", "route": "cuda",
+         "source": "prismarine_core_tpu_torch/csrc/texture.cu",
+         "replaces": None,
+         "launches_4spp_frame": texturing["launches_frame"],
+         "max_abs_err": 0.0,
+         **{k: texturing[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+             "distinct_rows", "distinct_bound_ms", "distinct_bound_share",
+             "fetches", "build")},
+         "library_ms": None,
+         "shape": "bounce-1 hits of hall720-bvh-textured.frames "
+                  "(3,686,400 lanes; diffuse, specular, bump)"})
     table = {"kernels": rows,
         "frame": {k: v for k, v in frame.items() if k != "launches"},
         "frame_mt2": {k: v for k, v in frame2.items() if k != "launches"},

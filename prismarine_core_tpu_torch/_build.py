@@ -46,6 +46,10 @@ _SIGNATURES = {
     # soup, uvs, mats, tri, u, v, ns, ng, uv, tang, diffuse, specular,
     # emissive, transmission, ior, tex, n_rays, textured, bump, stream
     "surface_fields_launch": (_P,) * 16 + (_I, _I, _I, _P),
+    # quad, sizes, uv, ns, tang, diffuse, specular, emissive, tex_diffuse,
+    # tex_specular, tex_emissive, tex_bump, out ns, albedo, emissive,
+    # rough, metal, n_rays, n_tex, h, w, kinds, stream
+    "texture_fields_launch": (_P,) * 17 + (_I,) * 5 + (_P,),
     # in[23], out[17], ints[12], floats[3] (ops/shade.py), stream
     "shade_launch": (_P,) * 5,
     # radiance, factor, occ, out, n_rays, stream

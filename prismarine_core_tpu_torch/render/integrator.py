@@ -43,13 +43,14 @@ from prismarine_core_tpu_torch.models.camera import (
     Camera, generate_rays, tile_order_active, tile_pixel_inv_perm,
     tile_pixel_perm)
 from prismarine_core_tpu_torch.models.textures import (
-    env_pdf, sample_bicubic, sample_bilinear, sample_env_direction)
+    env_pdf, sample_env_direction)
 from prismarine_core_tpu_torch.ops import sampling as smp
 from prismarine_core_tpu_torch.ops.intersect import (
     Hit, intersect_closest_brute, occluded_brute)
 from prismarine_core_tpu_torch.ops.shade import (
     Spec, nee_resolve, shade, shade_inputs)
 from prismarine_core_tpu_torch.ops.surface import surface_fields, unit_or
+from prismarine_core_tpu_torch.ops.texture import texture_fields, untextured
 from prismarine_core_tpu_torch.utils import math as pm
 from prismarine_core_tpu_torch.utils.config import (
     GAP, INF_DIST, RenderConfig, check_supported)
@@ -191,8 +192,10 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
     from the soup through ``ops/surface.py:surface_fields`` (one kernel
     launch on a CUDA card) or, with ``carried``, from the sharded query's
     interpolated fields (ns, ng, tang, uv, mat_id; the soup is a husk on
-    a distributed scene).  Each bound kind's fetch and its use run inside
-    a span of their own, ``pc.texture.<kind>``."""
+    a distributed scene).  The bound kinds' fetches and their use come
+    from ``ops/texture.py:texture_fields`` (one kernel launch on a CUDA
+    card), inside one span ``pc.texture.fetch``; its plain version runs
+    each kind inside a span of its own, ``pc.texture.<kind>``."""
     if carried is not None:
         ng = pm.normalize(carried["ng"])
         ns = unit_or(carried["ns"], ng)
@@ -201,40 +204,12 @@ def _interpolate_surface(scene, hit: Hit, cfg: RenderConfig, kinds=None,
         tang = unit_or(carried["tang"], 0.0)
     else:
         ns, ng, uv, tang, mat = surface_fields(scene, hit, kinds)
-    albedo4 = mat.diffuse
-    rough, metal = mat.specular[:, 1], mat.specular[:, 2]
-    emissive = mat.emissive[:, :3]
-    if not getattr(scene.textures, "stub", False):
-        sample_tex = (sample_bicubic if cfg.texture_filter == "bicubic"
-                      else sample_bilinear)
-        stack = scene.textures
-        if kinds[3]:
-            with span("pc.texture.bump"):
-                # tangent-space normal mapping: the bump texture's normal
-                # in the frame of the tangent (from the uv derivatives)
-                btex = sample_tex(stack, mat.tex_bump, uv)
-                bitan = pm.cross(ns, tang)
-                nt = btex[:, :3] * 2.0 - 1.0
-                n_mapped = pm.normalize(tang * nt[:, 0:1]
-                                        + bitan * nt[:, 1:2]
-                                        + ns * nt[:, 2:3])
-                ns = torch.where((mat.tex_bump >= 0)[:, None], n_mapped, ns)
-        if kinds[0]:
-            with span("pc.texture.diffuse"):
-                tex = sample_tex(stack, mat.tex_diffuse, uv)
-                albedo4 = torch.where((mat.tex_diffuse >= 0)[:, None],
-                                      albedo4 * tex, albedo4)
-        if kinds[2]:
-            with span("pc.texture.emissive"):
-                etex = sample_tex(stack, mat.tex_emissive, uv)
-                emissive = torch.where((mat.tex_emissive >= 0)[:, None],
-                                       emissive * etex[:, :3], emissive)
-        if kinds[1]:
-            with span("pc.texture.specular"):
-                has_stex = mat.tex_specular >= 0
-                stex = sample_tex(stack, mat.tex_specular, uv)
-                rough = torch.where(has_stex, rough * stex[:, 1], rough)
-                metal = torch.where(has_stex, metal * stex[:, 2], metal)
+    if getattr(scene.textures, "stub", False) or not any(kinds):
+        ns, albedo4, emissive, rough, metal = untextured(ns, mat)
+    else:
+        with span("pc.texture.fetch"):
+            ns, albedo4, emissive, rough, metal = texture_fields(
+                scene.textures, cfg.texture_filter, kinds, ns, tang, uv, mat)
     return dict(
         shading_normal=ns,
         geom_normal=ng,

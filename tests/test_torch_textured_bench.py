@@ -2,9 +2,10 @@
 size: its frozen inputs equal the port's generator, the plain reference's
 fetch, tangent and normal mapping equal the port's, a textured frame of
 the port equals the reference (and does not with a map kind unbound in
-the program alone), the ``pc.texture.<kind>`` spans open once a bounce
-for each bound kind and never on the untextured hall, the new readers
-read them, and the cell runs correct through the harness.
+the program alone), the ``pc.texture.fetch`` span and, on the plain
+chain inside it, the ``pc.texture.<kind>`` spans open once a bounce for
+each bound kind and never on the untextured hall, the new readers read
+them, and the cell runs correct through the harness.
 
 The module imports no jax:
 
@@ -276,9 +277,10 @@ def span_counts(prog):
                          ids=["pbr", "with_emissive"])
 def test_texture_spans_once_a_bounce_for_each_bound_kind(small_hall,
                                                          emissive):
-    """A textured frame opens ``pc.texture.<kind>`` once a bounce for each
-    kind a material binds and never for another; the untextured hall
-    opens none; the textured frame's declared host syncs are the
+    """A textured frame opens ``pc.texture.fetch`` once a bounce and, on
+    the CPU's plain chain inside it, ``pc.texture.<kind>`` once a bounce
+    for each kind a material binds and never for another; the untextured
+    hall opens none; the textured frame's declared host syncs are the
     untextured one's plus the one ``pc.sync.kinds``."""
     cell, arrays = small_hall
     if emissive:
@@ -292,7 +294,7 @@ def test_texture_spans_once_a_bounce_for_each_bound_kind(small_hall,
     bound = {"diffuse", "specular", "bump"} | ({"emissive"} if emissive
                                               else set())
     assert {k: v for k, v in got.items() if k.startswith("pc.texture.")} \
-        == {f"pc.texture.{k}": bounces for k in bound}
+        == {f"pc.texture.{k}": bounces for k in bound | {"fetch"}}
     assert got["pc.surface"] == bounces
 
     plain = program.build(cell.config, plugins.load("scenes", "hall").arrays(
